@@ -10,31 +10,46 @@ Runs from the root of a checkout, builds the XOR matvec kernel from
 main path at L=24 (dim 2**24) with the random-field Heisenberg chain:
 
 1. environment: torch/CUDA versions, the card, its power limit, build time;
-2. the kernel against its plain PyTorch version on the card, Full and both
-   Parity sectors, float32 and float64, with times and nnz/s;
-3. ``evolve``: L=14 against scipy's expm_multiply, then L=24;
-4. ``eigsolve``: float64 at L=16 in a child process (precision is fixed at
-   initialization) against scipy's eigsh, then float32 at L=24.
+2. ``kernel``: the one-device route against its plain PyTorch version on the
+   card, Full and both Parity sectors, float32 and float64, with times,
+   nnz/s, the bound, and cuSPARSE's CSR SpMV of the same matrix;
+3. ``kernel_sharded``: the sharded route on P = 1, 2, 4, 8 virtual shards
+   of one vector, each from its row offset and partner blocks: put together
+   equal to the one-device route, each shard against its plain version;
+4. ``evolve``: L=14 against scipy's expm_multiply, then L=24;
+5. ``eigsolve``: float64 at L=16 in a child process (precision is fixed at
+   initialization) against scipy's eigsh, then float32 at L=24;
+6. ``distributed``: one child process per GPU, on NCCL, runs evolve and
+   eigsolve at L=24 through the sharded route (one rank on a one-GPU
+   machine: no exchange), and with two GPUs or more holds the gathered
+   ``H.dot`` against the one-device route.
 
 Each phase prints one JSON line; any failure raises (non-zero exit). The
 last lines are the card's ``nvidia-smi`` name and power limit, the kernel
-record, and ``{"ok": true, "device": {...}}``. Exits non-zero without a
+records, and ``{"ok": true, "device": {...}}``. Exits non-zero without a
 result when no CUDA device is available or the package is missing.
 """
 
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHILD_FLAG = '--child-eigsolve-double'
+CHILD_DIST = '--child-distributed'
 
 # error bounds of the kernel against its plain version: max|dy| / max|y|.
 # Both sum the same terms in float arithmetic of the working type but in
 # different orders, so they differ by a few ulps of the largest partial sum.
 KERNEL_TOL = {'float32': 1e-5, 'float64': 1e-12}
+
+# an H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s
+# and non-tensor-core FLOP/s per type, for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {'float32': 67e12, 'float64': 34e12}
 
 
 def emit(obj):
@@ -132,37 +147,182 @@ def phase_kernel(L=24):
             ms = cuda_ms(lambda: xor_apply(x, tables))
             plain_ms = cuda_ms(lambda: xor_apply_reference(x, tables))
             nnz = tables.dim * H.nnz
+            bound_ms, bound_by = bound(tables, dt)
             rows.append({'case': name, 'dtype': dt, 'dim': tables.dim,
                          'groups': tables.n_groups, 'terms': tables.n_terms,
-                         'nnz_per_row': H.nnz, 'max_abs_err': abs_err,
+                         'nnz_per_row': H.nnz,
+                         'flops_per_row': flops_per_row(tables),
+                         'max_abs_err': abs_err,
                          'rel_err': rel_err, 'tol': KERNEL_TOL[dt],
                          'ms': ms, 'plain_ms': plain_ms,
+                         'bound_ms': bound_ms, 'bound_by': bound_by,
                          'nnz_per_s': nnz / (ms * 1e-3),
                          'plain_nnz_per_s': nnz / (plain_ms * 1e-3)})
             if not rel_err <= KERNEL_TOL[dt]:
                 emit({'phase': 'kernel', 'cases': rows})
                 raise RuntimeError(f'{name} {dt}: kernel disagrees with its '
                                    f'plain version ({rel_err:.3e})')
+            if name == 'localized_full' and dtype == torch.float32:
+                lib_ms, lib_err = library_spmv(tables, x, y)
+                rows[-1].update(library_ms=lib_ms, library_rel_err=lib_err)
+                # float32 values and sums in another order than the kernel
+                if not lib_err <= 1e-4:
+                    raise RuntimeError(f'the CSR yardstick disagrees with '
+                                       f'the kernel ({lib_err:.3e})')
             del x, y, y_plain
     emit({'phase': 'kernel', 'cases': rows})
     return rows
 
 
+def flops_per_row(tables):
+    """The float operations one row of y needs, counted from the operator's
+    own tables: one add per term for each nonzero part of its coefficient
+    (real, imaginary), and per group two FMAs (4 flops) for each nonzero
+    part of f_g times the complex x -- 4 for a real or imaginary f_g, 8 for
+    a complex one."""
+    import numpy as np
+    adds = (np.count_nonzero(tables.term_cr)
+            + np.count_nonzero(tables.term_ci))
+    fmas = 0
+    for g in range(tables.n_groups):
+        terms = slice(tables.group_start[g], tables.group_start[g + 1])
+        fmas += 2 * (bool(np.any(tables.term_cr[terms]))
+                     + bool(np.any(tables.term_ci[terms])))
+    return int(adds + 2 * fmas)
+
+
+def bound(tables, dtype, src_blocks=1):
+    """(ms, 'bytes' or 'operations'): the least time an H100 could take for
+    one apply -- the larger of the bytes it must move (each input block read
+    once, y written once) over HBM bandwidth, and its float operations
+    (:func:`flops_per_row`) over the peak rate of the type. ``src_blocks``
+    counts the source blocks the sharded route reads, in units of the whole
+    vector."""
+    itemsize = 4 if dtype == 'float32' else 8
+    moved = 2 * itemsize * tables.dim * (src_blocks + 1)
+    flops = tables.dim * flops_per_row(tables)
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, 'bytes'
+    return by_ops, 'operations'
+
+
+def library_spmv(tables, x, y_kernel):
+    """The yardstick: cuSPARSE's CSR SpMV (int32 indices, complex64) of the
+    same matrix, built on the card from the tables, times the same vector.
+    Returns (ms, max|dy|/max|y| against the kernel). The port never calls
+    it; the matrix is freed before returning."""
+    import torch
+    from dynamite_tpu_torch.ops.index_maps import parity
+    dim, G, dev = tables.dim, tables.n_groups, x.device
+    k = torch.arange(dim, dtype=torch.int64, device=dev)
+    cols = torch.empty((dim, G), dtype=torch.int32, device=dev)
+    vals = torch.empty((dim, G), dtype=torch.complex64, device=dev)
+    for g, m in enumerate(tables.group_mask):
+        cols[:, g] = k ^ int(m)
+        fr = torch.zeros(dim, dtype=torch.float64, device=dev)
+        fi = torch.zeros(dim, dtype=torch.float64, device=dev)
+        for t in range(tables.group_start[g], tables.group_start[g + 1]):
+            w = (1 - 2 * parity(k & int(tables.term_s[t]))).double()
+            fr += float(tables.term_cr[t]) * w
+            fi += float(tables.term_ci[t]) * w
+        vals[:, g] = torch.complex(fr.float(), fi.float())
+    del k, fr, fi
+    crow = torch.arange(0, dim * G + 1, G, dtype=torch.int32, device=dev)
+    A = torch.sparse_csr_tensor(crow, cols.reshape(-1), vals.reshape(-1),
+                                size=(dim, dim))
+    xc = torch.complex(x[0], x[1])
+    y = A @ xc
+    yk = torch.complex(y_kernel[0], y_kernel[1])
+    err = float((y - yk).abs().max() / yk.abs().max())
+    ms = cuda_ms(lambda: A @ xc)
+    del A, cols, vals, crow, xc, y, yk
+    torch.cuda.empty_cache()
+    return ms, err
+
+
+def phase_kernel_sharded(single_rows, L=24):
+    """The sharded route on P virtual shards of one vector on the card: each
+    shard is launched with its row offset and its partner blocks. P = 1 is
+    the one-rank layout the distributed phase runs on one card. Put
+    together, the shards must equal the one-device route (max |dy| = 0:
+    the same terms per row in the same order); each shard must agree with
+    its plain version within KERNEL_TOL. Times are the sum of the P
+    launches (plain: of the P plain calls, at P = 4 only)."""
+    import torch
+    from dynamite_tpu_torch.ops.xor_apply import (
+        xor_apply, xor_apply_sharded, xor_apply_sharded_reference)
+    single_ms = {(r['case'], r['dtype']): r['ms'] for r in single_rows}
+    rows = []
+    for name, H, kernel in kernel_cases(L):
+        tables = kernel.tables
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).replace('torch.', '')
+            x = random_planes(tables.dim, dtype, seed=11)
+            y_one = xor_apply(x, tables)
+            for P in (1, 2, 4, 8):
+                st = tables.for_layout(tables.nbits - (P.bit_length() - 1))
+                n = st.local_dim
+                blocks = [x[:, b * n:(b + 1) * n].contiguous()
+                          for b in range(P)]
+                srcs = [[blocks[me ^ h] for h in st.hi_list]
+                        for me in range(P)]
+
+                def run_all(fn):
+                    return [fn(srcs[me], st, me * n) for me in range(P)]
+
+                parts = run_all(xor_apply_sharded)
+                plain = run_all(xor_apply_sharded_reference)
+                torch.cuda.synchronize()
+                diff_one = float((torch.cat(parts, dim=1) - y_one).abs()
+                                 .max())
+                abs_err = max(float((a - b).abs().max())
+                              for a, b in zip(parts, plain))
+                rel_err = max(float((a - b).abs().max() / b.abs().max())
+                              for a, b in zip(parts, plain))
+                row = {'case': name, 'dtype': dt, 'P': P,
+                       'hi_list': st.hi_list,
+                       'max_abs_diff_vs_one_device': diff_one,
+                       'max_abs_err': abs_err, 'rel_err': rel_err,
+                       'tol': KERNEL_TOL[dt],
+                       'ms_sum_of_P': cuda_ms(lambda: run_all(
+                           xor_apply_sharded)),
+                       'one_device_ms': single_ms[name, dt]}
+                if P == 4:
+                    row['plain_ms_sum_of_P'] = cuda_ms(
+                        lambda: run_all(xor_apply_sharded_reference),
+                        reps=3, warmup=1)
+                    row['bound_ms'], row['bound_by'] = bound(
+                        tables, dt, src_blocks=len(st.hi_list))
+                rows.append(row)
+                if not (diff_one == 0 and rel_err <= KERNEL_TOL[dt]):
+                    emit({'phase': 'kernel_sharded', 'cases': rows})
+                    raise RuntimeError(f'{name} {dt} P={P}: the sharded '
+                                       'route disagrees')
+                del blocks, srcs, parts, plain
+            del x, y_one
+    emit({'phase': 'kernel_sharded', 'cases': rows})
+    return rows
+
+
 def counted(fn, what):
-    """Run the main-path call ``fn`` with the kernel's launch count set to 0
-    just before it and read just after, so no check's own launch is counted.
-    Raises unless the kernel ran at least once per matvec the solver counted.
-    Returns (fn's result, launches, solver stats, wall seconds)."""
+    """Run the main-path call ``fn`` with the kernel's launch count
+    (``xor_apply_sharded.launches``, the one wrapper that launches it) set
+    to 0 just before it and read just after, so no check's own launch is
+    counted. Raises unless the kernel ran at least once per matvec the
+    solver counted. Returns (fn's result, launches, solver stats, wall
+    seconds)."""
     import torch
     from dynamite_tpu_torch import computations
-    from dynamite_tpu_torch.ops.xor_apply import xor_apply
+    from dynamite_tpu_torch.ops.xor_apply import xor_apply_sharded
     torch.cuda.synchronize()
-    xor_apply.launches = 0
+    xor_apply_sharded.launches = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = xor_apply.launches
+    launches = xor_apply_sharded.launches
     stats = dict(computations.last_solve_stats)
     if not launches >= stats['matvecs'] > 0:
         raise RuntimeError(f'{what}: {launches} kernel launches for '
@@ -287,6 +447,157 @@ def phase_eigsolve():
     return child_launches + launches
 
 
+def child_distributed(rank, world, port):
+    """One rank of the distributed phase: NCCL, one GPU per rank, float32,
+    evolve and eigsolve of localized(24) through the sharded route."""
+    require_card_and_port()
+    import numpy as np
+    import scipy.sparse.linalg
+    import torch
+    import torch.distributed as dist
+    from dynamite_tpu_torch import config
+    from dynamite_tpu_torch.computations import eigsolve, evolve
+    from dynamite_tpu_torch.models import localized
+    from dynamite_tpu_torch.ops import apply
+    from dynamite_tpu_torch.ops.cvec import norm
+    from dynamite_tpu_torch.ops.xor_apply import xor_apply
+    from dynamite_tpu_torch.parallel import multihost
+    from dynamite_tpu_torch.states import State
+    from dynamite_tpu_torch.subspaces import Full
+
+    config.precision = 'single'
+    multihost.initialize(rank=rank, world_size=world,
+                         init_method=f'tcp://localhost:{port}')
+    # NCCL itself, once: the ranks' ones summed
+    one = torch.ones(1, device=config.device)
+    dist.all_reduce(one)
+    if float(one) != world:
+        raise RuntimeError(f'NCCL all_reduce gave {float(one)}, not {world}')
+
+    # small: the gathered result against scipy on the host (and the first
+    # solve of this process, which warms up the libraries)
+    L = 14
+    H = localized(L)
+    sub = Full(L=L)
+    H.add_subspace(sub)
+    psi = State(state='random', subspace=sub, seed=3)
+    got = evolve(H, psi, t=1.0).to_numpy()
+    want = scipy.sparse.linalg.expm_multiply(-1j * H.to_numpy(),
+                                             psi.to_numpy())
+    err_14 = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    if not err_14 <= 1e-5:
+        raise RuntimeError(f'distributed evolve L=14 disagrees with '
+                           f'expm_multiply ({err_14:.3e})')
+
+    L = 24
+    H = localized(L)
+    sub = Full(L=L)
+    H.add_subspace(sub)
+    psi = State(state='random', subspace=sub, seed=42)
+    exchange = apply.exchange
+    exchange.exchanges = exchange.bytes = 0
+    r, ev_launches, ev_stats, evolve_s = counted(
+        lambda: evolve(H, psi, t=1.0), 'distributed evolve L=24')
+    ev_exchange = (exchange.exchanges, exchange.bytes)
+    nrm = r.norm()
+    if not (np.isfinite(nrm) and abs(nrm - 1.0) <= 1e-3):
+        raise RuntimeError(f'distributed evolve L=24 norm {nrm}')
+
+    exchange.exchanges = exchange.bytes = 0
+    (evals, evecs), eig_launches, eig_stats, eigsolve_s = counted(
+        lambda: eigsolve(H, nev=1, getvecs=True),
+        'distributed eigsolve L=24')
+    eig_exchange = (exchange.exchanges, exchange.bytes)
+    lam = float(evals[0])
+    v = evecs[0]
+    resid = float(norm(H.dot(v).data - lam * v.data)) / abs(lam)
+    if not (np.isfinite(lam) and resid <= 1e-4):
+        raise RuntimeError(f'distributed eigsolve residual {resid:.3e}')
+
+    # every rank took the same host decisions
+    counts = np.array([ev_stats['matvecs'], eig_stats['matvecs'],
+                       eig_stats['restarts'], ev_launches, eig_launches])
+    every = multihost.allgather_host_values(counts)
+    if not (every == every[0]).all():
+        raise RuntimeError(f'ranks disagree on their solves: {every}')
+    out = {'phase': 'distributed', 'backend': dist.get_backend(),
+           'world_size': world, 'L14_rel_err_vs_expm_multiply': err_14,
+           'L': L, 'precision': 'single',
+           'evolve_s': evolve_s, 'evolve_norm_s': ev_stats['norm_s'],
+           'evolve_solve_s': ev_stats['solve_s'], 'norm': nrm,
+           'evolve_matvecs': ev_stats['matvecs'],
+           'evolve_launches': ev_launches,
+           'evolve_exchanges': ev_exchange[0],
+           'evolve_exchange_bytes': ev_exchange[1],
+           'eigsolve_s': eigsolve_s, 'eval0': lam,
+           'relative_residual': resid,
+           'eigsolve_matvecs': eig_stats['matvecs'],
+           'eigsolve_launches': eig_launches,
+           'eigsolve_exchanges': eig_exchange[0],
+           'eigsolve_exchange_bytes': eig_exchange[1],
+           'launches_all_ranks': int(every[:, 3:].sum())}
+    if world >= 2:
+        x_all = multihost.gather_rows(psi.data)
+        y_all = multihost.gather_rows(H.dot(psi).data)
+        if rank == 0:
+            y_one = xor_apply(x_all, H.get_mat().tables)
+            diff = float((y_all - y_one).abs().max())
+            out['dot_max_abs_diff_vs_one_device'] = diff
+            if not diff <= KERNEL_TOL['float32'] * float(y_one.abs().max()):
+                raise RuntimeError(f'gathered H.dot differs from the '
+                                   f'one-device route by {diff:.3e}')
+    if rank == 0:
+        emit(out)
+    multihost.barrier()
+    multihost.shutdown()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def phase_distributed():
+    """One child process per GPU (the largest power of two of them), on
+    NCCL; returns rank 0's record."""
+    import torch
+    n_gpus = torch.cuda.device_count()
+    world = 1 << (n_gpus.bit_length() - 1)
+    port = _free_port()
+    torch.cuda.empty_cache()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, LOCAL_RANK=str(rank))
+        env.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), CHILD_DIST,
+             str(rank), str(world), str(port)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        sys.stderr.write(err)
+        if p.returncode != 0:
+            raise RuntimeError(f'distributed rank {rank} of {world} failed '
+                               f'(exit code {p.returncode})')
+    lines = outs[0][0].strip().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    rec = json.loads(lines[-1])
+    if rec['phase'] != 'distributed':
+        raise RuntimeError('the distributed phase printed no record')
+    return rec
+
+
 def main():
     require_card_and_port()
     import torch
@@ -297,24 +608,48 @@ def main():
 
     card = phase_env()
     rows = phase_kernel()
-    # each main-path call counts its own launches (see counted)
+    sharded_rows = phase_kernel_sharded(rows)
+    # each main-path call counts its own launches (see counted); one
+    # wrapper launches the kernel on both routes, and the phase tells the
+    # layout: one block here, one block per rank in the distributed child
     launches = phase_evolve() + phase_eigsolve()
+    dist_rec = phase_distributed()
 
     if 'jax' in sys.modules:
         raise RuntimeError('the port imported jax')
 
     main_case = next(r for r in rows if r['case'] == 'localized_full'
                      and r['dtype'] == 'float32')
+    shard_case = next(r for r in sharded_rows
+                      if r['case'] == 'localized_full'
+                      and r['dtype'] == 'float32' and r['P'] == 4)
     print(card, flush=True)
     emit({'kernels': [{
         'name': 'xor_apply',
         'route': 'cuda',
         'source': 'dynamite_tpu_torch/csrc/xor_apply.cu',
-        'replaces': 'dynamite_tpu/ops/pallas_apply.py:309',
+        'replaces': 'dynamite_tpu/ops/pallas_apply.py:309 via :468',
         'launches': launches,
         'max_abs_err': max(r['max_abs_err'] for r in rows),
         'ms': main_case['ms'],
         'plain_ms': main_case['plain_ms'],
+        'bound_ms': main_case['bound_ms'],
+        'bound_by': main_case['bound_by'],
+        'library_ms': main_case['library_ms'],
+    }, {
+        # localized(24), float32, P = 4 virtual shards: the sum of the four
+        # launches; the yardstick is the same SpMV of the whole matrix
+        'name': 'xor_apply_sharded',
+        'route': 'cuda',
+        'source': 'dynamite_tpu_torch/csrc/xor_apply.cu',
+        'replaces': 'dynamite_tpu/ops/pallas_apply.py:309 via :497',
+        'launches': dist_rec['launches_all_ranks'],
+        'max_abs_err': max(r['max_abs_err'] for r in sharded_rows),
+        'ms': shard_case['ms_sum_of_P'],
+        'plain_ms': shard_case['plain_ms_sum_of_P'],
+        'bound_ms': shard_case['bound_ms'],
+        'bound_by': shard_case['bound_by'],
+        'library_ms': main_case['library_ms'],
     }]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
@@ -324,5 +659,7 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:] == [CHILD_FLAG]:
         child_eigsolve_double()
+    elif sys.argv[1:2] == [CHILD_DIST]:
+        child_distributed(*map(int, sys.argv[2:]))
     else:
         main()

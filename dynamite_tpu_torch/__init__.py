@@ -52,6 +52,8 @@ class _Config:
         device : str or torch.device, optional
             Where states and operator tables live. Defaults to CUDA when
             ``torch.cuda.is_available()``, else the CPU.
+            ``parallel.multihost.initialize()`` pins it to this rank's GPU,
+            ``cuda:{LOCAL_RANK}``.
 
         slepc_args, version_check, gpu :
             Accepted for call-compatibility with the reference; ignored.
@@ -134,7 +136,8 @@ class _Config:
 
     @property
     def device(self):
-        """The torch.device that holds states and operator tables."""
+        """The torch.device that holds states and operator tables (this
+        rank's GPU once a process group is up)."""
         self._initialize()
         return self._device
 

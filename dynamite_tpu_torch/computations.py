@@ -4,6 +4,11 @@ High-level computations: time evolution and eigensolving.
 Reference analog: src/dynamite/computations.py (there, thin wrappers over
 SLEPc MFN/EPS; here, wrappers over the torch Krylov solvers in
 dynamite_tpu_torch.solvers).
+
+With a process group up (``parallel.multihost.initialize``), every rank
+calls these together on its own rows; the solvers' reductions are
+all-reduced, so every rank takes the same host decisions and ends with the
+same ``last_solve_stats``.
 """
 
 import time

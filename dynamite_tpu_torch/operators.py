@@ -12,6 +12,7 @@ import re
 import warnings
 from dataclasses import dataclass
 from string import ascii_lowercase
+from zlib import crc32
 
 import numpy as np
 
@@ -19,6 +20,7 @@ from . import config
 from .utils import validate
 from .utils.bitwise import parity
 from .ops import msc as msc_tools
+from .parallel import multihost
 from .subspaces import Full, Parity
 from .states import State
 
@@ -374,6 +376,7 @@ class Operator:
         config._initialize()
 
         self.reduce_msc()
+        self._check_consistent_msc(self.msc)
 
         if not msc_tools.is_hermitian(self.msc):
             raise ValueError('Building non-Hermitian matrices currently not '
@@ -385,6 +388,21 @@ class Operator:
             raise ValueError(self._projection_message())
 
         self._kernels[subspaces] = kernel
+
+    @staticmethod
+    def _check_consistent_msc(msc):
+        """Check that the operator is the same on every rank: a CRC32 of its
+        terms, all-gathered (the JAX package's check across host
+        processes; the reference's cross-rank CRC, operators.py:633-651)."""
+        if multihost.world_size() == 1:
+            return
+        checksum = np.array([crc32(msc.tobytes())], dtype=np.uint32)
+        all_sums = multihost.allgather_host_values(checksum)
+        if not np.all(all_sums == all_sums.flat[0]):
+            raise RuntimeError(
+                'operator is inconsistent across ranks. Was it constructed '
+                'using non-deterministic code, such as random numbers with '
+                'inconsistent seeds?')
 
     @staticmethod
     def _projection_message():

@@ -11,13 +11,21 @@ reduced mask m', a pure XOR permutation: the case this slice of the port
 carries. It runs in the hand-written CUDA kernel on CUDA tensors and in its
 plain PyTorch version on CPU tensors (see :mod:`.xor_apply`). Other subspace
 pairs raise NotImplementedError (ROADMAP.md queue 1).
+
+Once a process group is up (:func:`..parallel.multihost.initialize`), each
+rank holds a (2, local_dim) block of rows (:mod:`..parallel.mesh`) and the
+apply exchanges blocks pairwise with the ranks its masks reach, then runs
+the kernel's sharded route once (:meth:`OperatorKernel.apply`).
 """
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
+from ..parallel import mesh, multihost
 from ..utils.bitwise import parity as parity_np
 from . import msc as msc_mod
-from .xor_apply import XorTables, xor_apply
+from .xor_apply import XorTables, xor_apply_sharded
 
 
 def _is_xor_pair(left, right):
@@ -69,11 +77,43 @@ class _Plan:
         self.nterms = sum(len(g[2]) for g in groups)
 
 
+def exchange(x_local, tables, bufs):
+    """Fill ``bufs[i - 1]`` with the block of rank ``me ^ hi_list[i]``, for
+    every m_hi != 0 of ``tables.hi_list`` (a :class:`ShardedXorTables`), by
+    one pairwise send/recv per m_hi, all posted in one
+    ``dist.batch_isend_irecv`` and waited on. Every rank takes the masks in
+    the same sorted order. Returns the source list of the kernel's sharded
+    route; counts ``exchange.exchanges`` and ``exchange.bytes`` (sent by
+    this rank)."""
+    me = multihost.rank()
+    srcs, ops = [], []
+    for m_hi in tables.hi_list:
+        if m_hi == 0:
+            srcs.append(x_local)
+            continue
+        buf = bufs[len(ops) // 2]
+        ops.append(dist.P2POp(dist.isend, x_local, me ^ m_hi))
+        ops.append(dist.P2POp(dist.irecv, buf, me ^ m_hi))
+        srcs.append(buf)
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        exchange.exchanges += len(ops) // 2
+        exchange.bytes += len(ops) // 2 * x_local.numel() \
+            * x_local.element_size()
+    return srcs
+
+
+exchange.exchanges = 0
+exchange.bytes = 0
+
+
 class OperatorKernel:
     """A matrix-free matvec y = A @ x for one Full/Parity subspace pair.
 
     ``apply(x)`` takes the (2, dim_right) stacked-real tensor and returns the
-    (2, dim_left) result, on x's device and in x's dtype.
+    (2, dim_left) result, on x's device and in x's dtype. With a process
+    group up, x and the result are this rank's (2, local_dim) rows.
     """
 
     def __init__(self, msc, left, right):
@@ -82,12 +122,32 @@ class OperatorKernel:
         self.right = right
         self.tables = XorTables(self.plan, left)
         self._krylov_ops = {}
+        self._recv_bufs = {}
 
     def apply(self, x):
-        if x.shape != (2, self.plan.dim_right):
-            raise ValueError(f'expected a (2, {self.plan.dim_right}) state, '
-                             f'got {tuple(x.shape)}')
-        return xor_apply(x.contiguous(), self.tables)
+        """This rank's rows of y (every row without a process group):
+        exchange blocks with the ranks ``me ^ m_hi``, then one launch of the
+        kernel. Without a group, or on one rank, the layout is one block and
+        nothing is exchanged. The receive buffers, ``len(hi_list) - 1``
+        blocks, are kept per dtype and device between calls, so the memory
+        grows with the number of distinct high masks."""
+        x = x.contiguous()
+        dim = self.plan.dim_right
+        n = mesh.local_dim(dim)
+        if x.shape != (2, n):
+            raise ValueError(f'expected this rank\'s (2, {n}) rows, got '
+                             f'{tuple(x.shape)}')
+        if self.tables.n_groups == 0:
+            return torch.zeros_like(x)
+        tables = self.tables.for_layout(self.tables.nbits
+                                        - mesh.device_bits(dim))
+        key = (x.dtype, x.device)
+        if key not in self._recv_bufs:
+            self._recv_bufs[key] = torch.empty(
+                (len(tables.hi_list) - (0 in tables.hi_list), 2, n),
+                dtype=x.dtype, device=x.device)
+        srcs = exchange(x, tables, self._recv_bufs[key])
+        return xor_apply_sharded(srcs, tables, mesh.row0(dim))
 
     def krylov_ops(self, m):
         """Cached Krylov building blocks for subspace size m."""

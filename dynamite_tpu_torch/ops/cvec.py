@@ -5,10 +5,16 @@ A complex vector of dimension N is stored as a real tensor of shape (2, N):
 row 0 = real part, row 1 = imaginary part — the JAX package's layout, kept
 so that the Krylov code ports line for line and the tests compare like with
 like. Scalars come back as 0-d tensors; callers convert with ``float``.
+
+With a process group up, each rank holds its rows of every vector, and the
+reductions (:func:`vdot`, :func:`norm_squared`, :func:`norm`) take this
+rank's part, then sum over ranks in one device all-reduce.
 """
 
 import numpy as np
 import torch
+
+from ..parallel import multihost
 
 
 def vdot(x, y):
@@ -17,15 +23,19 @@ def vdot(x, y):
     yr, yi = y[0], y[1]
     re = torch.dot(xr, yr) + torch.dot(xi, yi)
     im = torch.dot(xr, yi) - torch.dot(xi, yr)
+    if multihost.world_size() > 1:
+        re, im = multihost.allreduce_sum_(torch.stack([re, im]))
     return re, im
 
 
 def norm_squared(x):
-    return torch.sum(x * x)
+    return multihost.allreduce_sum_(torch.sum(x * x))
 
 
 def norm(x):
-    return torch.linalg.vector_norm(x)
+    if multihost.world_size() == 1:
+        return torch.linalg.vector_norm(x)
+    return torch.sqrt(norm_squared(x))
 
 
 def scale_real(x, a):

@@ -6,11 +6,14 @@ Full/Parity pairs.
 It is the matvec's term sweep with the accumulation replaced by a reduction
 — as the reference's MatNorm_CPU does (max over rows of the |coefficient|
 row sum, bpetsc_template_2.c:906-981) — run over row chunks in a plain loop.
-The host numpy oracle is ``Operator._infinity_norm_host``.
+The host numpy oracle is ``Operator._infinity_norm_host``. With a process
+group up, each rank sweeps its own rows and the maxima meet in one
+all-reduce.
 """
 
 import torch
 
+from ..parallel import mesh, multihost
 from . import msc as msc_mod
 from .index_maps import device_map, parity
 
@@ -34,10 +37,12 @@ def build_infinity_norm(msc, left, right, real_dtype, device):
 
     def norm_fn():
         best = torch.zeros((), dtype=real_dtype, device=device)
+        first = mesh.row0(dim)
+        stop = first + mesh.local_dim(dim)
         C = min(1 << RED_CHUNK_BITS, dim)
-        for start in range(0, dim, C):
-            rows = torch.arange(start, min(start + C, dim), dtype=torch.int64,
-                                device=device)
+        for start in range(first, stop, C):
+            rows = torch.arange(start, min(start + C, stop),
+                                dtype=torch.int64, device=device)
             kets = left_map.i2s(rows)
             row_sum = torch.zeros(rows.shape, dtype=real_dtype, device=device)
             for m, terms in groups:
@@ -51,6 +56,6 @@ def build_infinity_norm(msc, left, right, real_dtype, device):
                 _, valid = right_map.s2i(bra)
                 row_sum += torch.sqrt(fr * fr + fi * fi) * valid
             best = torch.maximum(best, row_sum.max())
-        return float(best)
+        return float(multihost.allreduce_max_(best))
 
     return norm_fn

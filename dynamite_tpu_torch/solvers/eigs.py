@@ -11,16 +11,20 @@ symmetric arrowhead+tridiagonal matrix) is solved on the host with numpy.
 import numpy as np
 import torch
 
+from ..parallel import mesh, multihost
 from . import krylov
 from .expmv import MaxIterationsError
 
 
 def random_start(dim, dtype, device, seed=0):
-    """Normalized random (2, dim) start vector, drawn on the device from a
-    ``torch.Generator`` seeded with ``seed``."""
+    """Normalized random start vector: this rank's (2, local_dim) rows of a
+    space of dimension ``dim``, drawn on the device from a
+    ``torch.Generator`` seeded with (seed, rank) and normalized over all
+    ranks. The vector depends on the world size."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    w = torch.randn((2, dim), generator=gen, dtype=dtype, device=device)
+    gen.manual_seed(multihost.rank_seed(seed))
+    w = torch.randn((2, mesh.local_dim(dim)), generator=gen, dtype=dtype,
+                    device=device)
     return w / krylov.norm(w)
 
 
@@ -47,6 +51,7 @@ def eigsolve_trlanczos(kops, dim, dtype, device, nev=1, which='lowest',
     max_restarts : int, optional
     v0 : (2, dim) array or tensor, optional
         Start vector (normalized here); a seeded random one by default.
+        With a process group up, each rank takes its rows of it.
 
     Returns
     -------
@@ -66,7 +71,7 @@ def eigsolve_trlanczos(kops, dim, dtype, device, nev=1, which='lowest',
     else:
         if not isinstance(v0, torch.Tensor):
             v0 = torch.from_numpy(np.array(v0))
-        v0 = v0.to(device=device, dtype=dtype)
+        v0 = mesh.local_rows(v0, dim).to(device=device, dtype=dtype)
         v0 = v0 / krylov.norm(v0)
 
     if stats is None:

@@ -10,7 +10,8 @@ for a Hermitian matrix-free ``matvec``, with full (two-pass classical
 Gram-Schmidt) reorthogonalization — the numerical strategy needed to match
 SLEPc's Krylov accuracy (reference north star: eigenvalues to 1e-10).
 
-The Krylov basis lives on the device as a (m+1, 2, dim) stacked-real tensor.
+The Krylov basis lives on the device as a (m+1, 2, dim) stacked-real tensor
+(each rank's rows of it, with a process group up).
 Inner products against the active basis rows are one skinny matmul, and so
 is the combine; they run in full precision (TF32 is off, see
 ``_Config._initialize``). alpha/beta stay on the device until the whole
@@ -18,6 +19,9 @@ factorization is done, so a factorization costs one host sync.
 """
 
 import torch
+
+from ..ops import cvec
+from ..parallel import mesh, multihost
 
 
 def workspace_bytes(dim, ncv, real_bytes):
@@ -28,26 +32,31 @@ def workspace_bytes(dim, ncv, real_bytes):
 
 def check_workspace_fits(dim, ncv, device, dtype, context):
     """Warn when the Krylov basis will not fit in the free device memory,
-    with the ncv-vs-memory tradeoff spelled out."""
+    with the ncv-vs-memory tradeoff spelled out. ``dim`` is the space's
+    dimension; each rank holds its share of the basis."""
     if device.type != 'cuda':
         return
     free, _total = torch.cuda.mem_get_info(device)
-    need = workspace_bytes(dim, ncv, torch.empty((), dtype=dtype)
-                           .element_size())
+    need = workspace_bytes(mesh.local_dim(dim), ncv,
+                           torch.empty((), dtype=dtype).element_size())
     if need > 0.9 * free:
         import warnings
         warnings.warn(
             f'{context}: the ncv={ncv} Krylov basis needs '
-            f'{need / 1e9:.1f} GB but only {free / 1e9:.1f} GB of device '
-            'memory is free — reduce ncv (more, shorter restarts)',
+            f'{need / 1e9:.1f} GB per device but only {free / 1e9:.1f} GB '
+            'of device memory is free — reduce ncv (more, shorter '
+            'restarts) or spread the state over more GPUs',
             RuntimeWarning, stacklevel=3)
 
 
 def _basis_dots(V, w):
     """Complex inner products <V_k | w> for every row k of V.
-    V: (n, 2, dim); w: (2, dim). Returns (re, im) of shape (n,)."""
+    V: (n, 2, dim); w: (2, dim). Returns (re, im) of shape (n,). With a
+    process group up, the (n, 2, 2) block is summed over ranks in one
+    device all-reduce."""
     n = V.shape[0]
     D = (V.reshape(n * 2, V.shape[-1]) @ w.T).reshape(n, 2, 2)
+    multihost.allreduce_sum_(D)
     re = D[:, 0, 0] + D[:, 1, 1]
     im = D[:, 0, 1] - D[:, 1, 0]
     return re, im
@@ -69,7 +78,7 @@ def _orthogonalize(V, w):
 
 
 def norm(w):
-    return torch.linalg.vector_norm(w)
+    return cvec.norm(w)
 
 
 def _normalized(w):

@@ -3,8 +3,10 @@ State vectors on ``config.device``.
 
 A State's data is a real tensor of shape (2, dim) — row 0 the real part,
 row 1 the imaginary part — the JAX package's layout (see
-:mod:`dynamite_tpu_torch.ops.cvec`). There is no sharding, so the storage
-length is the subspace dimension.
+:mod:`dynamite_tpu_torch.ops.cvec`). With a process group up
+(:mod:`dynamite_tpu_torch.parallel.multihost`), each rank holds only its
+(2, local_dim) rows (:mod:`dynamite_tpu_torch.parallel.mesh`); functions that
+take or give a whole vector as numpy gather or slice it.
 
 Reference semantics: src/dynamite/states.py (PETSc.Vec wrapper).
 """
@@ -19,6 +21,7 @@ import torch
 from . import config, subspaces
 from .utils import validate
 from .ops import cvec
+from .parallel import mesh, multihost
 
 # the subspace metadata of a saved state names its classes under the JAX
 # package's module path, so a file saved by either package loads in the other
@@ -53,6 +56,13 @@ def _dump_subspace(subspace, f):
 
 class UninitializedError(RuntimeError):
     pass
+
+
+def _check_one_process(what):
+    if multihost.world_size() > 1:
+        raise NotImplementedError(
+            f'{what} of a state spread over {multihost.world_size()} ranks '
+            'is not ported yet (ROADMAP.md queue 1, item 12)')
 
 
 class State:
@@ -129,19 +139,23 @@ class State:
 
     @property
     def storage_dim(self):
-        """Physical length of the state axis (no sharding: the dimension)."""
-        return len(self)
+        """Length of this rank's state axis (the dimension on one
+        process)."""
+        return mesh.local_dim(len(self))
 
     @property
     def data(self):
-        """The (2, dim) re/im tensor on ``config.device``. Lazily allocated
-        as zeros."""
+        """The (2, storage_dim) re/im tensor on ``config.device``. Lazily
+        allocated as zeros."""
         if self._data is None:
             if self.L is None:
                 raise ValueError('must set L first')
-            self._data = torch.zeros((2, len(self)), dtype=config.real_dtype,
-                                     device=config.device)
+            self._data = self._zeros()
         return self._data
+
+    def _zeros(self):
+        return torch.zeros((2, self.storage_dim), dtype=config.real_dtype,
+                           device=config.device)
 
     @data.setter
     def data(self, value):
@@ -190,9 +204,11 @@ class State:
             raise ValueError('Provided initial state not in requested '
                              'subspace.')
 
-        data = torch.zeros((2, len(self)), dtype=config.real_dtype,
-                           device=config.device)
-        data[0, idx] = 1
+        # only the rank that owns row idx writes it
+        data = self._zeros()
+        local = idx - mesh.row0(len(self))
+        if 0 <= local < self.storage_dim:
+            data[0, local] = 1
         self._data = data
         self.set_initialized()
 
@@ -200,24 +216,27 @@ class State:
 
     def set_uniform(self):
         """Uniform superposition over the subspace's basis states."""
-        dim = len(self)
-        data = torch.zeros((2, dim), dtype=config.real_dtype,
-                           device=config.device)
-        data[0] = 1 / np.sqrt(dim)
+        data = self._zeros()
+        data[0] = 1 / np.sqrt(len(self))
         self._data = data
         self.set_initialized()
 
     def set_random(self, seed=None, normalize=True):
         """Normalized complex Gaussian random state, drawn on the device
         from a ``torch.Generator`` seeded with ``seed`` (a fresh random seed
-        when None). The same seed gives the same state on the same device
-        type; it does not reproduce the JAX package's random stream."""
+        from rank 0 when None). Each rank draws its rows from a generator
+        seeded with (seed, rank), so the state depends on the world size,
+        as the JAX package's depends on its mesh. The same seed and world
+        size give the same state on the same device type; it does not
+        reproduce the JAX package's random stream."""
         if seed is None:
-            seed = int.from_bytes(urandom(4), 'big', signed=False)
+            seed = int(multihost.broadcast_from_host0(np.asarray(
+                [int.from_bytes(urandom(4), 'big', signed=False)],
+                dtype=np.int64))[0])
         device = config.device
         gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed) % 2**63)
-        data = torch.randn((2, len(self)), generator=gen,
+        gen.manual_seed(multihost.rank_seed(seed))
+        data = torch.randn((2, self.storage_dim), generator=gen,
                            dtype=config.real_dtype, device=device)
         if normalize:
             data = cvec.scale_real(data, 1.0 / float(cvec.norm(data)))
@@ -226,22 +245,25 @@ class State:
 
     def set_all_by_function(self, val_fn, vectorize=False):
         """Set each element to ``val_fn(state_int)`` evaluated along the
-        subspace's basis."""
-        dim = len(self)
-        vec = np.empty(dim, dtype=np.complex128)
+        subspace's basis (this rank's rows of it)."""
+        first = mesh.row0(len(self))
+        n = self.storage_dim
+        vec = np.empty(n, dtype=np.complex128)
         block = 65536
-        for start in range(0, dim, block):
-            stop = min(dim, start + block)
-            states = self.subspace.idx_to_state(np.arange(start, stop))
+        for start in range(0, n, block):
+            stop = min(n, start + block)
+            states = self.subspace.idx_to_state(
+                np.arange(first + start, first + stop))
             if vectorize:
                 vec[start:stop] = val_fn(states)
             else:
                 for i, st in zip(range(start, stop), states):
                     vec[i] = val_fn(int(st))
-        self.set_all_numpy(vec)
+        self._set_local(torch.from_numpy(np.stack([vec.real, vec.imag])))
 
     def set_all_numpy(self, vec):
-        """Set the full vector from a host complex array."""
+        """Set the full vector from a host complex array (each rank takes
+        its rows)."""
         vec = np.asarray(vec)
         if vec.shape != (len(self),):
             raise ValueError('array shape does not match subspace dimension')
@@ -250,12 +272,16 @@ class State:
     def set_planes(self, planes):
         """Set the vector from a (2, dim) real array or tensor of re/im
         planes — the JAX package's ``State.data`` layout, so a state carries
-        across as ``set_planes(np.asarray(ref_state.data))``."""
+        across as ``set_planes(np.asarray(ref_state.data))``. Each rank
+        takes its rows."""
         if not isinstance(planes, torch.Tensor):
             planes = torch.from_numpy(np.array(planes))
         if planes.shape != (2, len(self)):
             raise ValueError(f'expected a (2, {len(self)}) array of re/im '
                              f'planes, got {tuple(planes.shape)}')
+        self._set_local(mesh.local_rows(planes, len(self)))
+
+    def _set_local(self, planes):
         self._data = planes.to(device=config.device, dtype=config.real_dtype,
                                copy=True).contiguous()
         self.set_initialized()
@@ -263,10 +289,15 @@ class State:
     # -- conversions -----------------------------------------------------------
 
     def to_numpy(self, to_all=True):
-        """Return the state as a host complex128 numpy array. ``to_all`` is
-        accepted for reference API parity."""
+        """Return the whole state as a host complex128 numpy array. With a
+        process group up the ranks' rows are all-gathered, or with
+        ``to_all=False`` gathered to rank 0 only, and the other ranks get
+        None (a collective: every rank calls it)."""
         self.assert_initialized()
-        arr = self.data.detach().to('cpu', torch.float64).numpy()
+        data = multihost.gather_rows(self.data, to_all)
+        if data is None:
+            return None
+        arr = data.detach().to('cpu', torch.float64).numpy()
         return arr[0] + 1j * arr[1]
 
     # -- measurement/projection -------------------------------------------------
@@ -280,8 +311,9 @@ class State:
         if value not in (0, 1):
             raise ValueError('value must be 0 or 1')
 
-        dim = len(self)
-        states = self.subspace.idx_to_state(np.arange(dim, dtype=np.int64))
+        first = mesh.row0(len(self))
+        states = self.subspace.idx_to_state(
+            np.arange(first, first + self.storage_dim, dtype=np.int64))
         keep = torch.as_tensor(((states >> index) & 1) == value,
                                device=self.data.device)
         data = cvec.mask_rows(self.data, keep)
@@ -403,6 +435,7 @@ class State:
         """Save as ``<fname>.vec`` (raw binary re/im float64 array) plus
         ``<fname>.metadata`` (pickled subspace) — the JAX package's format.
         The vector is streamed to disk in SAVE_CHUNK-element pieces."""
+        _check_one_process('save')
         self.assert_initialized()
         dim = len(self)
         with open(fname + '.metadata', 'wb') as fm:
@@ -420,6 +453,7 @@ class State:
     @classmethod
     def from_file(cls, fname):
         """Load a state saved with :meth:`save` by either package."""
+        _check_one_process('load')
         with open(fname + '.metadata', 'rb') as f:
             subspace = _SubspaceUnpickler(f).load()
         dim = subspace.get_dimension()

@@ -1,6 +1,8 @@
 """
 The port on a CUDA device: the hand-written XOR kernel against its plain
-PyTorch version, and Operator.dot / evolve / eigsolve through the kernel.
+PyTorch version on both routes (one device, and P virtual shards of one
+vector), Operator.dot / evolve / eigsolve through the kernel, and the
+distributed path on NCCL when the machine has two GPUs or more.
 
 Every test here needs a card (marker ``cuda``) and skips without one. The
 file imports no JAX, so it runs on a machine without it, from the root of
@@ -23,7 +25,9 @@ from dynamite_tpu_torch import config
 from dynamite_tpu_torch import models
 from dynamite_tpu_torch import subspaces
 from dynamite_tpu_torch.computations import eigsolve, evolve
-from dynamite_tpu_torch.ops.xor_apply import xor_apply, xor_apply_reference
+from dynamite_tpu_torch.ops.xor_apply import (xor_apply, xor_apply_reference,
+                                              xor_apply_sharded,
+                                              xor_apply_sharded_reference)
 from dynamite_tpu_torch.states import State
 
 
@@ -70,10 +74,10 @@ def test_kernel_vs_plain_on_card(card, space, dtype):
     H.add_subspace(_sub(space))
     tables = H.get_mat().tables
     x = torch.from_numpy(_planes(tables.dim)).to(card, dtype)
-    before = xor_apply.launches
+    before = xor_apply_sharded.launches
     y = xor_apply(x, tables)
     torch.cuda.synchronize()
-    assert xor_apply.launches == before + 1
+    assert xor_apply_sharded.launches == before + 1
     want = xor_apply_reference(x, tables)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     err = (y - want).abs().max() / want.abs().max()
@@ -114,9 +118,9 @@ def test_dot_on_card_matches_cpu(card):
     psi = State(subspace=sub)
     psi.set_planes(_planes(sub.get_dimension(), seed=1))
     assert psi.data.is_cuda
-    before = xor_apply.launches
+    before = xor_apply_sharded.launches
     got = H.dot(psi).to_numpy()
-    assert xor_apply.launches == before + 1
+    assert xor_apply_sharded.launches == before + 1
     want = H.to_numpy() @ psi.to_numpy()
     assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
 
@@ -130,9 +134,9 @@ def test_evolve_and_eigsolve_on_card(card, space):
     psi = State(subspace=sub)
     psi.set_planes(v)
 
-    before = xor_apply.launches
+    before = xor_apply_sharded.launches
     got = evolve(H, psi, t=1.0).to_numpy()
-    assert xor_apply.launches > before
+    assert xor_apply_sharded.launches > before
     want = scipy.sparse.linalg.expm_multiply(-1j * H.to_numpy(),
                                              v[0] + 1j * v[1])
     assert np.linalg.norm(got - want) < 1e-6
@@ -140,3 +144,51 @@ def test_evolve_and_eigsolve_on_card(card, space):
     evals = eigsolve(H, nev=2)
     exact = np.linalg.eigvalsh(H.to_numpy().toarray())[:2]
     assert np.allclose(evals[:2], exact, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize('P', [1, 2, 4])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('space', SPACES)
+def test_sharded_kernel_vs_plain_on_card(card, space, dtype, P):
+    """The sharded route on P virtual shards of one vector: each shard from
+    its row offset and its partner blocks, against the plain version; put
+    together, they equal the one-device kernel exactly."""
+    H = models.mbl(L)
+    H.allow_projection = True
+    H.add_subspace(_sub(space))
+    tables = H.get_mat().tables
+    x = torch.from_numpy(_planes(tables.dim)).to(card, dtype)
+    st = tables.for_layout(tables.nbits - (P.bit_length() - 1))
+    n = st.local_dim
+    blocks = [x[:, b * n:(b + 1) * n].contiguous() for b in range(P)]
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    before = xor_apply_sharded.launches
+    parts = []
+    for me in range(P):
+        srcs = [blocks[me ^ h] for h in st.hi_list]
+        y = xor_apply_sharded(srcs, st, me * n)
+        want = xor_apply_sharded_reference(srcs, st, me * n)
+        assert float((y - want).abs().max() / want.abs().max()) <= tol
+        parts.append(y)
+    torch.cuda.synchronize()
+    assert xor_apply_sharded.launches == before + P
+    assert torch.equal(torch.cat(parts, dim=1), xor_apply(x, tables))
+
+
+def test_distributed_dot_on_nccl(card, tmp_path):
+    """H.dot, norms and states on one rank per GPU (NCCL), against the numpy
+    oracle; needs two GPUs or more."""
+    n_gpus = torch.cuda.device_count()
+    if n_gpus < 2:
+        pytest.skip('needs two GPUs or more')
+    from tests.test_torch_distributed import _model, _spawn
+    world = 1 << (n_gpus.bit_length() - 1)
+    H, sub = _model('dynamite_tpu_torch', 'full')
+    v = _planes(sub.get_dimension(), seed=1)
+    np.save(tmp_path / 'v.npy', v)
+    recs = _spawn('dot_full', world, tmp_path, device='cuda')
+    want = H.to_numpy() @ (v[0] + 1j * v[1])
+    got = np.load(tmp_path / 'hv.npy')
+    assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
+    assert recs[0]['inf_norm'] == pytest.approx(H._infinity_norm_host(),
+                                                rel=1e-12)

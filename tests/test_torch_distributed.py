@@ -1,0 +1,317 @@
+"""
+The port's distributed XOR path on 2 and 4 spawned ranks (torch.distributed
+on gloo, CPU tensors) against numpy/scipy oracles and the JAX package.
+
+Each case spawns its ranks once. A rank runs this file as a script (see the
+bottom): it imports torch and the port but neither JAX nor
+``tests/conftest.py``, runs torch at one thread, and meets the others
+through a ``file://`` store under the test's ``tmp_path``, so no ports are
+opened and xdist workers never clash. The parent makes the inputs from
+numpy seeds, computes the JAX and numpy sides, and hands both over as
+``.npy`` files; rank 0 writes what the ranks computed back the same way.
+
+Tolerances: matvec 1e-12 relative to max|y| in float64 (the same terms,
+summed per row in the same order as one process); evolve, with the solver's
+tol at 1e-12, 1e-10 in the 2-norm against ``expm_multiply`` and against the
+JAX package's expmv; eigenvalues 1e-10 relative against ``eigvalsh`` and the
+JAX package's sharded eigsolve on its virtual mesh.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+L = 8
+SPACES = {'full': ('localized', None), 'even': ('heisenberg', 'even')}
+
+
+def _model(pkg, space):
+    """The case's operator and subspace in one package (the port or the
+    JAX reference): localized(8) on Full, heisenberg(9) on Parity even —
+    both of dimension 256."""
+    model, sector = SPACES[space]
+    import importlib
+    models = importlib.import_module(pkg + '.models')
+    subspaces = importlib.import_module(pkg + '.subspaces')
+    if sector is None:
+        H, sub = getattr(models, model)(L), subspaces.Full(L=L)
+    else:
+        H, sub = getattr(models, model)(L + 1), subspaces.Parity(
+            sector, L=L + 1)
+    H.add_subspace(sub)
+    return H, sub
+
+
+def _planes(dim, seed):
+    v = np.random.RandomState(seed).standard_normal((2, dim))
+    return v / np.linalg.norm(v)
+
+
+def _spawn(case, world, tmp_path, device='cpu', timeout=180):
+    """Run ``case`` on ``world`` ranks (gloo on the CPU; NCCL, one GPU per
+    rank, with ``device='cuda'``); returns the per-rank JSON records (rank 0
+    also leaves its arrays in tmp_path)."""
+    env = dict(os.environ)
+    env.pop('XLA_FLAGS', None)
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS='1', MKL_NUM_THREADS='1',
+               OPENBLAS_NUM_THREADS='1', GLOO_SOCKET_IFNAME='lo')
+    store = tmp_path / 'store'
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), case, str(r), str(world),
+         str(store), str(tmp_path), device],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f'rank {r} of {world} failed:\n{out}'
+    return [json.loads((tmp_path / f'rank{r}.json').read_text())
+            for r in range(world)]
+
+
+def _rel(got, want):
+    return np.max(np.abs(got - want)) / np.max(np.abs(want))
+
+
+@pytest.fixture(autouse=True)
+def one_blas_thread():
+    """numpy's BLAS at one thread in the parent, as the ranks run torch:
+    CPU-heavy tests beside the JAX package's collectives overload the
+    machine (ROADMAP.md queue 3)."""
+    from threadpoolctl import threadpool_limits
+    with threadpool_limits(limits=1, user_api='blas'):
+        yield
+
+
+@pytest.mark.parametrize('world', [2, 4])
+@pytest.mark.parametrize('space', ['full', 'even'])
+def test_dot_norms_and_states(space, world, tmp_path):
+    """H.dot, infinity_norm, State.dot/norm, set_product on the owning
+    rank, and gathered to_numpy (to_all True and False)."""
+    H, sub = _model('dynamite_tpu_torch', space)
+    dim = sub.get_dimension()
+    v = _planes(dim, seed=1)
+    np.save(tmp_path / 'v.npy', v)
+    recs = _spawn('dot_' + space, world, tmp_path)
+
+    x = v[0] + 1j * v[1]
+    want = H.to_numpy() @ x
+    assert _rel(np.load(tmp_path / 'hv.npy'), want) < 1e-12
+    rec = recs[0]
+    assert rec['inf_norm'] == pytest.approx(H._infinity_norm_host(),
+                                            rel=1e-12)
+    assert complex(*rec['vdot']) == pytest.approx(np.vdot(x, want),
+                                                  rel=1e-12)
+    assert rec['norm'] == pytest.approx(np.linalg.norm(x), rel=1e-12)
+    assert all(r == rec for r in recs)
+
+    # set_product: only the owning rank holds the 1
+    idx = int(sub.state_to_idx(5))
+    owner = idx // (dim // world)
+    for r, got in enumerate(np.load(tmp_path / 'product_local.npy')):
+        assert got == (1.0 if r == owner else 0.0)
+    product = np.load(tmp_path / 'product.npy')
+    assert np.flatnonzero(product).tolist() == [idx]
+    assert product[idx] == 1
+
+
+@pytest.mark.parametrize('world', [2, 4])
+def test_evolve(world, tmp_path):
+    from scipy.sparse.linalg import expm_multiply
+    import jax.numpy as jnp
+    from dynamite_tpu.solvers.expmv import expmv as ref_expmv
+
+    H, sub = _model('dynamite_tpu_torch', 'full')
+    v = _planes(sub.get_dimension(), seed=2)
+    np.save(tmp_path / 'v.npy', v)
+    recs = _spawn('evolve', world, tmp_path)
+
+    got = np.load(tmp_path / 'evolved.npy')
+    x = v[0] + 1j * v[1]
+    oracle = expm_multiply(-1j * H.to_numpy(), x)
+    assert np.linalg.norm(got - oracle) < 1e-10
+    H_ref, _s = _model('dynamite_tpu', 'full')
+    kernel = H_ref.get_mat()
+    w = np.asarray(ref_expmv(kernel.krylov_ops(30), jnp.asarray(v), -1j,
+                             H_ref.infinity_norm(), ncv=30, tol=1e-12))
+    assert np.linalg.norm(got - (w[0] + 1j * w[1])) < 1e-10
+    # every rank took the same host decisions
+    assert all(r['stats'] == recs[0]['stats'] for r in recs)
+    assert recs[0]['stats']['substeps'] >= 1
+
+
+@pytest.mark.parametrize('world', [2, 4])
+def test_eigsolve(world, tmp_path):
+    from dynamite_tpu import config as ref_config
+    from dynamite_tpu.parallel.mesh import make_mesh
+
+    H, sub = _model('dynamite_tpu_torch', 'full')
+    recs = _spawn('eigsolve', world, tmp_path)
+    got = np.asarray(recs[0]['evals'])
+    exact = np.linalg.eigvalsh(H.to_numpy().toarray())[:2]
+    assert np.allclose(got[:2], exact, rtol=1e-10, atol=0)
+    assert max(recs[0]['residuals']) < 1e-8
+    assert all(r['evals'] == recs[0]['evals'] and r['stats'] ==
+               recs[0]['stats'] for r in recs)
+
+    # the JAX package's sharded eigsolve on its virtual mesh of as many
+    # devices (tests/integration/test_sharded.py::test_sharded_eigsolve)
+    saved = ref_config.mesh
+    try:
+        ref_config._L = None
+        ref_config._subspace = None
+        ref_config._mesh = make_mesh(mesh_shape=(world,))
+        H_ref, sub_ref = _model('dynamite_tpu', 'full')
+        assert H_ref.get_mat(subspaces=(sub_ref, sub_ref)).sharded_default()
+        want = H_ref.eigsolve(nev=2, subspace=sub_ref)
+    finally:
+        ref_config._mesh = saved
+    assert np.allclose(got[:2], want[:2], rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize('world', [2, 4])
+def test_operator_differing_by_rank_raises(world, tmp_path):
+    recs = _spawn('crc', world, tmp_path)
+    assert all('inconsistent across ranks' in r['error'] for r in recs)
+
+
+def test_three_ranks_not_implemented(tmp_path):
+    recs = _spawn('three', 3, tmp_path)
+    assert all('general all-gather sharded path' in r['error']
+               for r in recs)
+
+
+def test_one_process_helpers_are_no_ops():
+    """Without a process group: world size 1, rank 0, one block holding
+    every row, and every collective returns its input."""
+    import torch
+    from dynamite_tpu_torch.parallel import mesh, multihost
+    assert not multihost.is_initialized()
+    assert (multihost.rank(), multihost.world_size()) == (0, 1)
+    v = np.arange(4.0)
+    assert multihost.broadcast_from_host0(v) is v
+    assert multihost.allgather_host_values(v).shape == (1, 4)
+    t = torch.arange(3.0)
+    assert multihost.allreduce_sum_(t) is t and multihost.allreduce_max_(t) is t
+    assert multihost.gather_rows(t) is t and multihost.rank_seed(7) == 7
+    multihost.barrier()
+    assert (mesh.local_dim(256), mesh.row0(256), mesh.device_bits(256)) == \
+        (256, 0, 0)
+    planes = np.zeros((2, 256))
+    assert mesh.local_rows(planes, 256).shape == (2, 256)
+
+
+@pytest.mark.parametrize('dim,world', [(256, 3), (256, 6), (4, 8)])
+def test_layouts_the_xor_path_cannot_take(dim, world):
+    from dynamite_tpu_torch.parallel import mesh
+    with pytest.raises(NotImplementedError,
+                       match='general all-gather sharded path'):
+        mesh._check(dim, world)
+
+
+# -- the rank processes ---------------------------------------------------
+
+
+def _rank_main(case, rank, world, store, out_dir, device):
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, REPO)
+    from dynamite_tpu_torch import config
+    from dynamite_tpu_torch.parallel import multihost
+    from dynamite_tpu_torch.states import State
+
+    config.device = device
+    multihost.initialize(rank=rank, world_size=world,
+                         init_method='file://' + store)
+    assert 'jax' not in sys.modules and 'dynamite_tpu' not in sys.modules
+    rec = {}
+
+    def save(name, arr):
+        if rank == 0:
+            np.save(os.path.join(out_dir, name), arr)
+
+    def load(name):
+        return np.load(os.path.join(out_dir, name))
+
+    def state(sub, planes):
+        psi = State(subspace=sub)
+        psi.set_planes(planes)
+        return psi
+
+    if case.startswith('dot_'):
+        H, sub = _model('dynamite_tpu_torch', case[4:])
+        psi = state(sub, load('v.npy'))
+        hpsi = H.dot(psi)
+        save('hv.npy', hpsi.to_numpy())
+        gathered = hpsi.to_numpy(to_all=False)
+        assert (gathered is None) == (rank != 0)
+        rec['inf_norm'] = H.infinity_norm()
+        z = psi.dot(hpsi)
+        rec['vdot'] = [z.real, z.imag]
+        rec['norm'] = psi.norm()
+        prod = State(state=5, subspace=sub)
+        local = float(prod.data.abs().sum())
+        sums = multihost.allgather_host_values(np.array([local]))
+        save('product_local.npy', sums[:, 0])
+        save('product.npy', prod.to_numpy().real)
+    elif case == 'evolve':
+        from dynamite_tpu_torch import computations
+        H, sub = _model('dynamite_tpu_torch', 'full')
+        out = H.evolve(state(sub, load('v.npy')), t=1.0, tol=1e-12)
+        save('evolved.npy', out.to_numpy())
+        rec['stats'] = {k: v for k, v in computations.last_solve_stats.items()
+                        if not k.endswith('_s')}
+    elif case == 'eigsolve':
+        from dynamite_tpu_torch import computations
+        H, sub = _model('dynamite_tpu_torch', 'full')
+        evals, evecs = H.eigsolve(nev=2, getvecs=True)
+        rec['evals'] = [float(e) for e in evals]
+        rec['residuals'] = []
+        for lam, v in zip(evals, evecs):
+            r = H.dot(v)
+            r.axpy(-lam, v)
+            rec['residuals'].append(r.norm() / abs(lam))
+        rec['stats'] = {k: v for k, v in computations.last_solve_stats.items()
+                        if not k.endswith('_s')}
+    elif case == 'crc':
+        # a random field drawn with a seed of each rank's own
+        from dynamite_tpu_torch.models import localized
+        from dynamite_tpu_torch.subspaces import Full
+        H, sub = localized(L, seed=rank), Full(L=L)
+        H.add_subspace(sub)
+        try:
+            H.get_mat(subspaces=(sub, sub))
+            rec['error'] = ''
+        except RuntimeError as err:
+            rec['error'] = str(err)
+    elif case == 'three':
+        H, sub = _model('dynamite_tpu_torch', 'full')
+        try:
+            State(state='random', subspace=sub, seed=1)
+            rec['error'] = ''
+        except NotImplementedError as err:
+            rec['error'] = str(err)
+    else:
+        raise ValueError(case)
+
+    with open(os.path.join(out_dir, f'rank{rank}.json'), 'w') as f:
+        json.dump(rec, f)
+    multihost.barrier()
+    multihost.shutdown()
+
+
+if __name__ == '__main__':
+    _case, _rank, _world, _store, _out, _device = sys.argv[1:]
+    _rank_main(_case, int(_rank), int(_world), _store, _out, _device)
