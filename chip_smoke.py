@@ -9,10 +9,13 @@ Runs from the root of a checkout, builds the XOR matvec kernel from
 ``dynamite_tpu_torch/csrc/xor_apply.cu`` at first use, and drives the port's
 main path at L=24 (dim 2**24) with the random-field Heisenberg chain:
 
-1. environment: torch/CUDA versions, the card, its power limit, build time;
+1. environment: torch/CUDA versions, the card, its power limit, build time,
+   ptxas registers and spills of each kernel;
 2. ``kernel``: the one-device route against its plain PyTorch version on the
-   card, Full and both Parity sectors, float32 and float64, with times,
-   nnz/s, the bound, and cuSPARSE's CSR SpMV of the same matrix;
+   card, Full and both Parity sectors and long_range(24), float32 and
+   float64, with times, nnz/s, the bound, cuSPARSE's CSR SpMV of the same
+   matrix, and the diagonal stream's build (its own kernel) against its
+   plain version, with its time and bytes;
 3. ``kernel_sharded``: the sharded route on P = 1, 2, 4, 8 virtual shards
    of one vector, each from its row offset and partner blocks: put together
    equal to the one-device route, each shard against its plain version;
@@ -26,8 +29,15 @@ main path at L=24 (dim 2**24) with the random-field Heisenberg chain:
 
 Each phase prints one JSON line; any failure raises (non-zero exit). The
 last lines are the card's ``nvidia-smi`` name and power limit, the kernel
-records, and ``{"ok": true, "device": {...}}``. Exits non-zero without a
+records (the matvec kernel on each route, and the diagonal kernel), and
+``{"ok": true, "device": {...}}``. Exits non-zero without a
 result when no CUDA device is available or the package is missing.
+
+    python3 chip_smoke.py --group-costs
+
+times the matvec kernel on synthetic L=24 operators instead, to show what
+one mask group costs by where its partner rows lie, and localized(24) with
+and without the diagonal stream (see group_costs).
 """
 
 import json
@@ -40,6 +50,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHILD_FLAG = '--child-eigsolve-double'
 CHILD_DIST = '--child-distributed'
+GROUP_COSTS = '--group-costs'
 
 # error bounds of the kernel against its plain version: max|dy| / max|y|.
 # Both sum the same terms in float arithmetic of the working type but in
@@ -98,19 +109,48 @@ def phase_env():
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     build = build_library()
-    ptxas = [line.strip() for line in build['log'].splitlines()
-             if 'registers' in line or 'spill' in line]
     emit({'phase': 'env', 'python': sys.version.split()[0],
           'torch': torch.__version__, 'cuda': torch.version.cuda,
           'device': torch.cuda.get_device_name(0),
           'capability': list(torch.cuda.get_device_capability(0)),
           'nvidia_smi': card, 'kernel_build_s': build['seconds'],
-          'ptxas': ptxas})
+          'ptxas': ptxas_records(build['log'])})
     return card
 
 
+def ptxas_records(log):
+    """Registers and spill bytes per kernel instantiation, from the
+    ``-Xptxas -v`` lines of the build log."""
+    import re
+    records, current = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            name = re.search(r'(xor_(?:apply|diagonal)_kernel)I([fd])',
+                             mangled)
+            label = mangled
+            if name:
+                args = ['float' if name.group(2) == 'f' else 'double',
+                        *re.findall(r'Li(\d+)E', mangled)]
+                label = f"{name.group(1)}<{','.join(args)}>"
+            current = {'kernel': label}
+            records.append(current)
+        elif current is not None:
+            spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                              r'loads', line)
+            regs = re.search(r'Used (\d+) registers', line)
+            if spill:
+                current['spill_store_bytes'] = int(spill.group(1))
+                current['spill_load_bytes'] = int(spill.group(2))
+            if regs:
+                current['registers'] = int(regs.group(1))
+    return records
+
+
 def kernel_cases(L):
-    from dynamite_tpu_torch.models import localized, heisenberg, ising
+    from dynamite_tpu_torch.models import (localized, heisenberg, ising,
+                                           long_range)
     from dynamite_tpu_torch.subspaces import Full, Parity
     cases = []
     for name, H, sub in (
@@ -119,7 +159,10 @@ def kernel_cases(L):
             # ising's X field leaves the sector: with projection allowed the
             # odd sector keeps the ZZ terms, whose sign masks hit bit 0 and
             # exercise the Parity sign folding of _effective_sign_mask
-            ('ising_parity_odd', ising(L), Parity('odd', L=L))):
+            ('ising_parity_odd', ising(L), Parity('odd', L=L)),
+            # ~300 diagonal terms (all-pairs ZZ), and complex single-site
+            # groups (X + Y fields)
+            ('long_range_full', long_range(L), Full(L=L))):
         H.allow_projection = True
         H.add_subspace(sub)
         cases.append((name, H, H.get_mat(subspaces=(sub, sub))))
@@ -134,6 +177,8 @@ def phase_kernel(L=24):
     rows = []
     for name, H, kernel in kernel_cases(L):
         tables = kernel.tables
+        # the plain version of ~400 terms takes ~1 s a call
+        plain_reps = (3, 1) if tables.n_terms > 200 else (20, 3)
         for dtype in (torch.float32, torch.float64):
             dt = str(dtype).replace('torch.', '')
             x = random_planes(tables.dim, dtype, seed=7)
@@ -145,20 +190,25 @@ def phase_kernel(L=24):
             abs_err = float((y - y_plain).abs().max())
             rel_err = abs_err / float(y_plain.abs().max())
             ms = cuda_ms(lambda: xor_apply(x, tables))
-            plain_ms = cuda_ms(lambda: xor_apply_reference(x, tables))
+            plain_ms = cuda_ms(lambda: xor_apply_reference(x, tables),
+                               *plain_reps)
             nnz = tables.dim * H.nnz
             bound_ms, bound_by = bound(tables, dt)
             rows.append({'case': name, 'dtype': dt, 'dim': tables.dim,
                          'groups': tables.n_groups, 'terms': tables.n_terms,
+                         'kernel_groups': len(tables.kernel_groups),
                          'nnz_per_row': H.nnz,
                          'flops_per_row': flops_per_row(tables),
                          'max_abs_err': abs_err,
                          'rel_err': rel_err, 'tol': KERNEL_TOL[dt],
                          'ms': ms, 'plain_ms': plain_ms,
                          'bound_ms': bound_ms, 'bound_by': bound_by,
+                         'bound_share': bound_ms / ms,
                          'nnz_per_s': nnz / (ms * 1e-3),
-                         'plain_nnz_per_s': nnz / (plain_ms * 1e-3)})
-            if not rel_err <= KERNEL_TOL[dt]:
+                         'plain_nnz_per_s': nnz / (plain_ms * 1e-3),
+                         **diagonal_record(tables, dtype, plain_reps)})
+            if not (rel_err <= KERNEL_TOL[dt]
+                    and rows[-1]['diag_rel_err'] <= KERNEL_TOL[dt]):
                 emit({'phase': 'kernel', 'cases': rows})
                 raise RuntimeError(f'{name} {dt}: kernel disagrees with its '
                                    f'plain version ({rel_err:.3e})')
@@ -174,15 +224,53 @@ def phase_kernel(L=24):
     return rows
 
 
+def diagonal_record(tables, dtype, plain_reps):
+    """The diagonal stream of the whole space: its build (the diagonal
+    kernel) against its plain version, its time, bytes and bound. Zeros
+    when the operator keeps mask 0 in the group loop."""
+    import numpy as np
+    import torch
+    from dynamite_tpu_torch.ops.xor_apply import (xor_diagonal,
+                                                  xor_diagonal_reference)
+    if not tables.use_diag:
+        return {'diag_terms': 0, 'diag_bytes': 0, 'diag_rel_err': 0.0}
+    dt = str(dtype).replace('torch.', '')
+    st = tables.for_layout(tables.nbits)
+    d = xor_diagonal(st, 0, dtype, 'cuda')
+    want = xor_diagonal_reference(st, 0, dtype, 'cuda')
+    abs_err = float((d - want).abs().max())
+    ms = cuda_ms(lambda: xor_diagonal(st, 0, dtype, 'cuda'), reps=10)
+    plain_ms = cuda_ms(lambda: xor_diagonal_reference(st, 0, dtype, 'cuda'),
+                       *plain_reps)
+    adds = (np.count_nonzero(tables.diag_c.real)
+            + np.count_nonzero(tables.diag_c.imag))
+    by_bytes = d.numel() * d.element_size() / HBM_BYTES_PER_S * 1e3
+    by_ops = tables.dim * adds / PEAK_FLOPS[dt] * 1e3
+    return {'diag_terms': len(tables.diag_s), 'diag_planes': d.shape[0],
+            'diag_bytes': d.numel() * d.element_size(),
+            'diag_max_abs_err': abs_err,
+            'diag_rel_err': abs_err / float(want.abs().max()),
+            'diag_build_ms': ms, 'diag_plain_ms': plain_ms,
+            'diag_bound_ms': max(by_bytes, by_ops),
+            'diag_bound_by': 'bytes' if by_bytes >= by_ops else 'operations'}
+
+
 def flops_per_row(tables):
     """The float operations one row of y needs, counted from the operator's
     own tables: one add per term for each nonzero part of its coefficient
     (real, imaginary), and per group two FMAs (4 flops) for each nonzero
     part of f_g times the complex x -- 4 for a real or imaginary f_g, 8 for
-    a complex one."""
+    a complex one. With a diagonal stream (``use_diag``) the diagonal's
+    terms are summed once per operator by the diagonal kernel, whose own
+    bound counts them, so they add nothing per apply; d times x still
+    counts as the mask-0 group's FMAs."""
     import numpy as np
-    adds = (np.count_nonzero(tables.term_cr)
-            + np.count_nonzero(tables.term_ci))
+    diag = np.zeros(tables.n_terms, dtype=bool)
+    if tables.use_diag:
+        for g in np.flatnonzero(tables.group_mask == 0):
+            diag[tables.group_start[g]:tables.group_start[g + 1]] = True
+    adds = (np.count_nonzero(tables.term_cr[~diag])
+            + np.count_nonzero(tables.term_ci[~diag]))
     fmas = 0
     for g in range(tables.n_groups):
         terms = slice(tables.group_start[g], tables.group_start[g + 1])
@@ -197,7 +285,8 @@ def bound(tables, dtype, src_blocks=1):
     once, y written once) over HBM bandwidth, and its float operations
     (:func:`flops_per_row`) over the peak rate of the type. ``src_blocks``
     counts the source blocks the sharded route reads, in units of the whole
-    vector."""
+    vector. The diagonal stream's bytes are left out, as its adds are: so
+    the bound holds for a kernel with the stream and for one without it."""
     itemsize = 4 if dtype == 'float32' else 8
     moved = 2 * itemsize * tables.dim * (src_blocks + 1)
     flops = tables.dim * flops_per_row(tables)
@@ -307,31 +396,39 @@ def phase_kernel_sharded(single_rows, L=24):
 
 
 def counted(fn, what):
-    """Run the main-path call ``fn`` with the kernel's launch count
-    (``xor_apply_sharded.launches``, the one wrapper that launches it) set
+    """Run the main-path call ``fn`` with the kernels' launch counts set
     to 0 just before it and read just after, so no check's own launch is
-    counted. Raises unless the kernel ran at least once per matvec the
-    solver counted. Returns (fn's result, launches, solver stats, wall
-    seconds)."""
+    counted: ``xor_apply_sharded.launches`` (the one wrapper that launches
+    the matvec kernel) and ``xor_diagonal.launches`` (the diagonal stream's
+    builds, once per operator, dtype and layout). Raises unless the matvec
+    kernel ran at least once per matvec the solver counted. Returns (fn's
+    result, {kernel name: launches}, solver stats, wall seconds)."""
     import torch
     from dynamite_tpu_torch import computations
-    from dynamite_tpu_torch.ops.xor_apply import xor_apply_sharded
+    from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded,
+                                                  xor_diagonal)
     torch.cuda.synchronize()
     xor_apply_sharded.launches = 0
+    xor_diagonal.launches = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = xor_apply_sharded.launches
+    launches = {'xor_apply': xor_apply_sharded.launches,
+                'xor_diagonal': xor_diagonal.launches}
     stats = dict(computations.last_solve_stats)
-    if not launches >= stats['matvecs'] > 0:
-        raise RuntimeError(f'{what}: {launches} kernel launches for '
-                           f'{stats["matvecs"]} matvecs')
+    if not launches['xor_apply'] >= stats['matvecs'] > 0:
+        raise RuntimeError(f'{what}: {launches["xor_apply"]} kernel launches '
+                           f'for {stats["matvecs"]} matvecs')
     return out, launches, stats, seconds
 
 
+def add_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 def phase_evolve():
-    """Returns the kernel launches of the L=24 evolve."""
+    """Returns the kernels' launches of the L=24 evolve."""
     import numpy as np
     import scipy.sparse.linalg
     from dynamite_tpu_torch.computations import evolve
@@ -366,7 +463,9 @@ def phase_evolve():
         raise RuntimeError(f'evolve L=24 norm {nrm}')
     emit({'phase': 'evolve', 'L14_rel_err_vs_expm_multiply': err_14,
           'L': L, 'dim': 1 << L, 'evolve_s': evolve_s, 'norm': nrm,
-          'launches': launches, 'last_solve_stats': stats})
+          'launches': launches['xor_apply'],
+          'diag_builds': launches['xor_diagonal'],
+          'last_solve_stats': stats})
     return launches
 
 
@@ -406,7 +505,7 @@ def child_eigsolve_double():
 
 def phase_eigsolve():
     """float64 at L=16 in a child process, then float32 at L=24 here.
-    Returns the kernel launches of the two eigsolve calls."""
+    Returns the kernels' launches of the two eigsolve calls."""
     import numpy as np
     import torch
     from dynamite_tpu_torch.computations import eigsolve
@@ -439,12 +538,14 @@ def phase_eigsolve():
           'eval0': lam, 'relative_residual': resid,
           'eigsolve_s': eigsolve_s, 'matvecs': stats['matvecs'],
           'restarts': stats['restarts'],
-          'verify_cycles': stats['verify_cycles'], 'launches': launches})
+          'verify_cycles': stats['verify_cycles'],
+          'launches': launches['xor_apply'],
+          'diag_builds': launches['xor_diagonal']})
     # the solver's own float32 tolerance is 1e-6 relative to the eigenvalue;
     # the recomputed residual adds float32 rounding of H v
     if not (np.isfinite(lam) and resid <= 1e-4):
         raise RuntimeError(f'float32 eigsolve residual {resid:.3e}')
-    return child_launches + launches
+    return add_counts(child_launches, launches)
 
 
 def child_distributed(rank, world, port):
@@ -516,7 +617,10 @@ def child_distributed(rank, world, port):
 
     # every rank took the same host decisions
     counts = np.array([ev_stats['matvecs'], eig_stats['matvecs'],
-                       eig_stats['restarts'], ev_launches, eig_launches])
+                       eig_stats['restarts'], ev_launches['xor_apply'],
+                       eig_launches['xor_apply'],
+                       ev_launches['xor_diagonal']
+                       + eig_launches['xor_diagonal']])
     every = multihost.allgather_host_values(counts)
     if not (every == every[0]).all():
         raise RuntimeError(f'ranks disagree on their solves: {every}')
@@ -526,16 +630,17 @@ def child_distributed(rank, world, port):
            'evolve_s': evolve_s, 'evolve_norm_s': ev_stats['norm_s'],
            'evolve_solve_s': ev_stats['solve_s'], 'norm': nrm,
            'evolve_matvecs': ev_stats['matvecs'],
-           'evolve_launches': ev_launches,
+           'evolve_launches': ev_launches['xor_apply'],
            'evolve_exchanges': ev_exchange[0],
            'evolve_exchange_bytes': ev_exchange[1],
            'eigsolve_s': eigsolve_s, 'eval0': lam,
            'relative_residual': resid,
            'eigsolve_matvecs': eig_stats['matvecs'],
-           'eigsolve_launches': eig_launches,
+           'eigsolve_launches': eig_launches['xor_apply'],
            'eigsolve_exchanges': eig_exchange[0],
            'eigsolve_exchange_bytes': eig_exchange[1],
-           'launches_all_ranks': int(every[:, 3:].sum())}
+           'launches_all_ranks': int(every[:, 3:5].sum()),
+           'diag_builds_all_ranks': int(every[:, 5].sum())}
     if world >= 2:
         x_all = multihost.gather_rows(psi.data)
         y_all = multihost.gather_rows(H.dot(psi).data)
@@ -598,6 +703,97 @@ def phase_distributed():
     return rec
 
 
+def group_costs(L=24):
+    """``python3 chip_smoke.py --group-costs``: what one mask group costs
+    the matvec kernel, by where its partner rows lie. Each set is a Full(L)
+    operator of unit terms, one group per mask: with no sign masks, or with
+    the two terms of XX + YY (sign masks 0 and m: two slots when m lies in
+    the tile; cancelling in half the tiles when it lies above it);
+    ``diag_only`` is four Z terms (the diagonal stream alone). Then
+    localized(L) with the diagonal stream and with the mask-0 group kept in
+    the kernel's group loop. Prints one JSON line per set and dtype (CUDA
+    events, 20 reps after 3 warm-up), with a copy of x as the bytes'
+    yardstick, and the card's line."""
+    require_card_and_port()
+    import numpy as np
+    import torch
+    from dynamite_tpu_torch.models import localized
+    from dynamite_tpu_torch.operators import Operator
+    from dynamite_tpu_torch.ops import xor_apply as xor_mod
+    from dynamite_tpu_torch.subspaces import Full
+
+    def tables(masks, signs=None):
+        msc = np.zeros(len(masks), dtype=[('masks', np.int64),
+                                          ('signs', np.int64),
+                                          ('coeffs', np.complex128)])
+        msc['masks'] = masks
+        msc['signs'] = 0 if signs is None else signs
+        msc['coeffs'] = 1.0
+        H = Operator.from_msc(msc)
+        H.add_subspace(Full(L=L))
+        return H.get_mat().tables
+
+    def xx_yy(masks):
+        return [m for m in masks for _ in (0, 1)], [s for m in masks
+                                                    for s in (0, m)]
+
+    def localized_tables(min_diag_terms):
+        keep = xor_mod.DIAG_PRECOMPUTE_MIN_TERMS
+        xor_mod.DIAG_PRECOMPUTE_MIN_TERMS = min_diag_terms
+        try:
+            H = localized(L)
+            H.add_subspace(Full(L=L))
+            return H.get_mat().tables
+        finally:
+            xor_mod.DIAG_PRECOMPUTE_MIN_TERMS = keep
+
+    in_tile = [3 << i for i in range(8)]
+    mid = [3 << i for i in range(11, 19)]
+    far = [3 << i for i in range(20, 23)]
+    sets = {
+        'diag_only': lambda: tables([0] * 4, [1, 2, 4, 8]),
+        # partners among the rows of the same warp
+        'near_1': lambda: tables([1]),
+        'near_16': lambda: tables(list(range(1, 17))),
+        # partners in the same tile (2**10 rows in float64, 2**11 float32)
+        'in_tile_8': lambda: tables(in_tile),
+        'in_tile_8_xx_yy': lambda: tables(*xx_yy(in_tile)),
+        # partners in other tiles, 2**11 to 2**19 rows away
+        'mid_8': lambda: tables(mid),
+        'mid_8_xx_yy': lambda: tables(*xx_yy(mid)),
+        # partners 2**20 rows away and more: beyond what L2 holds of x
+        'far_1': lambda: tables([3 << 22]),
+        'far_3': lambda: tables(far),
+        'far_3_xx_yy': lambda: tables(*xx_yy(far)),
+        'localized_diag_stream': lambda: localized_tables(
+            xor_mod.DIAG_PRECOMPUTE_MIN_TERMS),
+        'localized_diag_in_loop': lambda: localized_tables(1 << 30),
+    }
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace('torch.', '')
+        x = random_planes(1 << L, dtype, seed=1)
+        y = torch.empty_like(x)
+        emit({'set': 'copy', 'dtype': dt, 'groups': 0,
+              'ms': cuda_ms(lambda: y.copy_(x))})
+        ys = {}
+        for name, make in sets.items():
+            t = make()
+            ys[name] = xor_mod.xor_apply(x, t)
+            emit({'set': name, 'dtype': dt,
+                  'groups': len(t.kernel_groups), 'use_diag': t.use_diag,
+                  'tile_bits': xor_mod.tile_shape(L, x.element_size())[0],
+                  'ms': cuda_ms(lambda: xor_mod.xor_apply(x, t))})
+        a, b = ys['localized_diag_stream'], ys['localized_diag_in_loop']
+        rel = float((a - b).abs().max() / b.abs().max())
+        if not rel <= KERNEL_TOL[dt]:
+            raise RuntimeError(f'localized {dt}: the diagonal stream and the '
+                               f'group loop disagree ({rel:.3e})')
+        del x, y, ys, a, b
+
+
 def main():
     require_card_and_port()
     import torch
@@ -612,8 +808,11 @@ def main():
     # each main-path call counts its own launches (see counted); one
     # wrapper launches the kernel on both routes, and the phase tells the
     # layout: one block here, one block per rank in the distributed child
-    launches = phase_evolve() + phase_eigsolve()
+    launches = add_counts(phase_evolve(), phase_eigsolve())
     dist_rec = phase_distributed()
+    diag_builds = launches['xor_diagonal'] + dist_rec['diag_builds_all_ranks']
+    if not diag_builds > 0:
+        raise RuntimeError('the main path built no diagonal stream')
 
     if 'jax' in sys.modules:
         raise RuntimeError('the port imported jax')
@@ -629,7 +828,7 @@ def main():
         'route': 'cuda',
         'source': 'dynamite_tpu_torch/csrc/xor_apply.cu',
         'replaces': 'dynamite_tpu/ops/pallas_apply.py:309 via :468',
-        'launches': launches,
+        'launches': launches['xor_apply'],
         'max_abs_err': max(r['max_abs_err'] for r in rows),
         'ms': main_case['ms'],
         'plain_ms': main_case['plain_ms'],
@@ -650,6 +849,22 @@ def main():
         'bound_ms': shard_case['bound_ms'],
         'bound_by': shard_case['bound_by'],
         'library_ms': main_case['library_ms'],
+    }, {
+        # the diagonal stream of localized(24), float32, one device: built
+        # once per operator, dtype and layout on both routes; no single
+        # PyTorch call computes it
+        'name': 'xor_diagonal',
+        'route': 'cuda',
+        'source': 'dynamite_tpu_torch/csrc/xor_apply.cu',
+        'replaces': 'dynamite_tpu/ops/pallas_apply.py:268 (compute_diagonal,'
+                    ' the stream the kernel at :309 reads)',
+        'launches': diag_builds,
+        'max_abs_err': max(r.get('diag_max_abs_err', 0.0) for r in rows),
+        'ms': main_case['diag_build_ms'],
+        'plain_ms': main_case['diag_plain_ms'],
+        'bound_ms': main_case['diag_bound_ms'],
+        'bound_by': main_case['diag_bound_by'],
+        'library_ms': None,
     }]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
@@ -661,5 +876,7 @@ if __name__ == '__main__':
         child_eigsolve_double()
     elif sys.argv[1:2] == [CHILD_DIST]:
         child_distributed(*map(int, sys.argv[2:]))
+    elif sys.argv[1:] == [GROUP_COSTS]:
+        group_costs()
     else:
         main()

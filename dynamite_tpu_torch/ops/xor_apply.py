@@ -1,12 +1,13 @@
 """
 The XOR-mode Pauli-string matvec for Full/Parity subspace pairs: the host
-plan, the wrappers of the hand-written Hopper kernel (``csrc/xor_apply.cu``)
-and its plain PyTorch version.
+plan, the wrappers of the hand-written Hopper kernels (``csrc/xor_apply.cu``)
+and their plain PyTorch versions.
 
 This replaces the JAX package's Pallas kernel
 (``dynamite_tpu/ops/pallas_apply.py::_build_call``) on both of its routes:
 one device (:func:`xor_apply`) and one rank's block of rows in the
-distributed path (:func:`xor_apply_sharded`). One term
+distributed path (:func:`xor_apply_sharded`), together with its diagonal
+stream (``compute_diagonal``; here :func:`xor_diagonal`). One term
 ``y[k] += c * (-1)^parity(bra & s) * x[col]`` reduces, for Full/Parity
 pairs, to ``c' * (-1)^parity(k & s_eff) * x[k ^ m']`` over row indices k
 (see :func:`_effective_sign_mask`). The plan flattens those into CSR tables,
@@ -16,17 +17,25 @@ one entry per mask group:
 * ``group_start[G+1]`` — each group's slice of the term arrays;
 * ``term_s[T]``, ``term_cr[T]``, ``term_ci[T]`` — s_eff and c * const_sign.
 
+Once the mask-0 group has ``DIAG_PRECOMPUTE_MIN_TERMS`` terms or more (the
+JAX kernel's threshold), it leaves the kernel's group loop: its sum, the
+diagonal d(k), is built once per (dtype, device, layout) by its own kernel
+and read beside x.
+
 For blocks of 2**local_bits rows, :meth:`XorTables.for_layout` splits each
 m' into ``m_hi = m' >> local_bits``, the source block, and ``m_lo``, the
 permutation inside it. The sign is taken on the global row index, so the
 TPU kernel's runtime vector of device-sign parities has no counterpart.
 
-The TPU kernel's block decomposition ("runs" of block offsets, the VMEM
-budget search, the +-1 row/lane sign tables, the roll-and-select in-tile
-permutation) existed because that chip has no scalar popcount and works on
-(8, 128) tiles; Hopper has ``__popc``, so none of it is carried over.
+The kernel factors the sign per tile of ``2**tile_bits`` rows, with R rows
+per thread (:func:`tile_shape`); :class:`TilePlan` holds its tables. Each
+sign mask splits into s_hi (bits >= tile_bits) and s_lo; a group's terms
+that share s_lo merge into one slot, whose coefficient
+``C = sum c_t (-1)^parity(k_hi & s_hi_t)`` each tile computes once; the
+slots of a group are sorted into R classes by ``s_lo & (R - 1)``, the sign
+pattern over the R rows of a thread.
 
-On CUDA tensors the wrappers launch the kernel or raise; on CPU tensors they
+On CUDA tensors the wrappers launch the kernels or raise; on CPU tensors they
 run the plain versions.
 """
 
@@ -51,7 +60,13 @@ BUILD_DIR = _PKG_DIR / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
 THREADS = 256  # kThreads in the CUDA source
+VECS = 2  # vectors of R rows per thread (kVecs in the CUDA source)
 MAX_SOURCES = 64  # kMaxSources in the CUDA source
+# the JAX kernel's threshold for the precomputed diagonal (pallas_apply.py)
+DIAG_PRECOMPUTE_MIN_TERMS = 4
+# group flags (kComplex, kMixed in the CUDA source)
+COMPLEX = 1
+MIXED = 2
 
 
 def _effective_sign_mask(s, m, left, right):
@@ -80,11 +95,106 @@ def _effective_sign_mask(s, m, left, right):
     raise TypeError('effective sign mask only defined for Full/Parity')
 
 
-class XorTables:
-    """The CSR group/term tables of one XOR-mode plan.
+def tile_shape(local_bits, itemsize):
+    """(tile_bits, rows_per_thread) of a launch on blocks of 2**local_bits
+    rows: R rows per thread make one 16-byte load per plane (4 in float32,
+    2 in float64), each thread takes VECS vectors of them, and a tile is
+    THREADS * R * VECS rows; both shrink to fit a smaller block."""
+    rows = 16 // itemsize
+    tile_bits = min((THREADS * rows * VECS).bit_length() - 1, local_bits)
+    return tile_bits, min(rows, 1 << local_bits)
 
-    The host (numpy) arrays drive the plain version; :meth:`on` returns the
-    kernel's device copies for one (device, dtype), built once and cached.
+
+class TilePlan:
+    """The kernel's slot tables for tiles of ``2**tile_bits`` rows and R =
+    ``rows_per_thread`` rows per thread, over a list of groups, each a pair
+    (sign masks, complex coefficients):
+
+    * ``group_flags[G]`` — COMPLEX if a coefficient has an imaginary part,
+      MIXED if the group has slots in a sign class other than 0;
+    * ``class_start[G*R + 1]`` — slot ranges by group, then by class
+      p = s_lo & (R - 1);
+    * ``slot_slo[S]`` — each slot's sign mask below tile_bits; slots are
+      sorted by (group, class, s_lo);
+    * ``slot_term_start[S + 1]``, ``term_shi[T]``, ``term_cr[T]``,
+      ``term_ci[T]`` — each slot's terms (in their order in the group), with
+      the sign mask from tile_bits up and the coefficient.
+    """
+
+    def __init__(self, groups, tile_bits, rows_per_thread):
+        R = rows_per_thread
+        if R & (R - 1) or R > 1 << tile_bits:
+            raise ValueError(f'{R} rows per thread do not divide a tile of '
+                             f'2**{tile_bits} rows')
+        self.tile_bits = tile_bits
+        self.rows_per_thread = R
+        lo = (1 << tile_bits) - 1
+        flags, cls, slo, starts, shi, coeffs = [], [0], [], [0], [], []
+        for signs, cs in groups:
+            signs = np.asarray(signs, dtype=np.int64)
+            cs = np.asarray(cs, dtype=np.complex128)
+            s_lo = signs & lo
+            flag = COMPLEX if np.any(cs.imag != 0) else 0
+            for p in range(R):
+                for v in np.unique(s_lo[(s_lo & (R - 1)) == p]):
+                    idx = np.flatnonzero(s_lo == v)
+                    slo.append(int(v))
+                    shi.extend(signs[idx] & ~np.int64(lo))
+                    coeffs.extend(cs[idx])
+                    starts.append(len(shi))
+                    if p:
+                        flag |= MIXED
+                cls.append(len(slo))
+            flags.append(flag)
+        self.group_flags = np.asarray(flags, dtype=np.int32)
+        self.class_start = np.asarray(cls, dtype=np.int32)
+        self.slot_slo = np.asarray(slo, dtype=np.int32)
+        self.slot_term_start = np.asarray(starts, dtype=np.int32)
+        self.term_shi = np.asarray(shi, dtype=np.int64)
+        coeffs = np.asarray(coeffs, dtype=np.complex128)
+        self.term_cr = coeffs.real.copy()
+        self.term_ci = coeffs.imag.copy()
+        self._device_tables = {}
+
+    @property
+    def n_groups(self):
+        return len(self.group_flags)
+
+    @property
+    def n_slots(self):
+        return len(self.slot_slo)
+
+    def smem_bytes(self, itemsize):
+        """Shared memory of one tile (``Tile::bytes`` in the CUDA source),
+        in 16-byte entries: per group its source pointer and m_lo, then its
+        flags and R + 1 class starts; per slot two coefficients and s_lo."""
+        def padded(nbytes):
+            return -(-nbytes // 16) * 16
+        return (self.n_groups * (16 + padded(4 * (self.rows_per_thread + 2)))
+                + self.n_slots * padded(2 * itemsize + 4 + (itemsize - 4)))
+
+    def on(self, device, dtype):
+        """The tables as tensors on ``device`` (coefficients in ``dtype``),
+        built once and cached."""
+        key = (device, dtype)
+        if key not in self._device_tables:
+            self._device_tables[key] = {
+                name: torch.as_tensor(getattr(self, name), device=device)
+                for name in ('group_flags', 'class_start', 'slot_slo',
+                             'slot_term_start', 'term_shi')}
+            for name in ('term_cr', 'term_ci'):
+                self._device_tables[key][name] = torch.as_tensor(
+                    getattr(self, name), device=device).to(dtype)
+        return self._device_tables[key]
+
+
+class XorTables:
+    """The CSR group/term tables of one XOR-mode plan, and the kernel's
+    split of them: the diagonal (``use_diag``: the mask-0 group's
+    ``diag_s``, ``diag_c``) and the groups of its loop (``kernel_groups``).
+
+    The host (numpy) arrays drive the plain versions; :meth:`tiles` and
+    :meth:`diag_tiles` give the kernels' tables for one tile shape.
     """
 
     def __init__(self, plan, left):
@@ -109,8 +219,23 @@ class XorTables:
         coeffs = np.asarray(coeffs, dtype=np.complex128)
         self.term_cr = coeffs.real.copy()
         self.term_ci = coeffs.imag.copy()
-        self._device_tables = {}
+
+        diag = [g for g in range(self.n_groups) if self.group_mask[g] == 0]
+        terms = np.concatenate(
+            [np.arange(self.group_start[g], self.group_start[g + 1])
+             for g in diag]).astype(np.int64) if diag else np.zeros(0, int)
+        self.use_diag = len(terms) >= DIAG_PRECOMPUTE_MIN_TERMS
+        if not self.use_diag:
+            diag, terms = [], terms[:0]
+        self.diag_s = self.term_s[terms]
+        self.diag_c = coeffs[terms]
+        self.has_imag_diag = bool(np.any(self.diag_c.imag != 0))
+        self.kernel_groups = np.asarray(
+            [g for g in range(self.n_groups) if g not in diag],
+            dtype=np.int64)
+        self._tiles = {}
         self._layouts = {}
+        self._diagonals = {}
 
     @property
     def n_groups(self):
@@ -120,23 +245,31 @@ class XorTables:
     def n_terms(self):
         return len(self.term_s)
 
-    def smem_bytes(self, itemsize):
-        """Shared memory the kernel stages the tables in (with one source
-        pointer per group)."""
-        return (8 * (2 * self.n_groups + self.n_terms)
-                + 2 * itemsize * self.n_terms + 4 * (self.n_groups + 1))
+    def tiles(self, tile_bits, rows_per_thread):
+        """The :class:`TilePlan` of the kernel's groups (cached)."""
+        key = ('groups', tile_bits, rows_per_thread)
+        if key not in self._tiles:
+            sl = [slice(self.group_start[g], self.group_start[g + 1])
+                  for g in self.kernel_groups]
+            self._tiles[key] = TilePlan(
+                [(self.term_s[s], self.term_cr[s] + 1j * self.term_ci[s])
+                 for s in sl], tile_bits, rows_per_thread)
+        return self._tiles[key]
 
-    def on(self, device, dtype):
-        """(group_start, term_s, term_cr, term_ci) tensors."""
-        key = (device, dtype)
-        if key not in self._device_tables:
-            self._device_tables[key] = (
-                torch.as_tensor(self.group_start, device=device),
-                torch.as_tensor(self.term_s, device=device),
-                torch.as_tensor(self.term_cr, device=device).to(dtype),
-                torch.as_tensor(self.term_ci, device=device).to(dtype),
-            )
-        return self._device_tables[key]
+    def diag_tiles(self, tile_bits, rows_per_thread):
+        """The :class:`TilePlan` of the diagonal, one group (cached)."""
+        key = ('diag', tile_bits, rows_per_thread)
+        if key not in self._tiles:
+            self._tiles[key] = TilePlan([(self.diag_s, self.diag_c)],
+                                        tile_bits, rows_per_thread)
+        return self._tiles[key]
+
+    def smem_bytes(self, itemsize, local_bits=None):
+        """Shared memory one tile of the kernel needs, for blocks of
+        2**local_bits rows (the whole space by default)."""
+        shape = tile_shape(self.nbits if local_bits is None else local_bits,
+                           itemsize)
+        return self.tiles(*shape).smem_bytes(itemsize)
 
     def for_layout(self, local_bits):
         """The tables for blocks of 2**local_bits rows (cached); the whole
@@ -153,7 +286,9 @@ class ShardedXorTables:
     * ``hi_list`` — the sorted distinct m_hi = m' >> local_bits: the block
       of rank r ^ m_hi is source ``hi_list.index(m_hi)`` of rank r;
     * ``m_lo[G]`` — m' & (local_dim - 1), the permutation inside a block;
-    * ``src_idx[G]`` — each group's index into ``hi_list``.
+    * ``src_idx[G]`` — each group's index into ``hi_list``;
+    * ``diag_src`` — the source of the own block (m_hi = 0), which the
+      diagonal multiplies.
     """
 
     def __init__(self, tables, local_bits):
@@ -167,14 +302,17 @@ class ShardedXorTables:
         self.m_lo = tables.group_mask & (self.local_dim - 1)
         self.hi_list = sorted({int(h) for h in m_hi})
         self.src_idx = np.searchsorted(self.hi_list, m_hi).astype(np.int32)
+        self.diag_src = self.hi_list.index(0) if tables.use_diag else -1
         self._device_tables = {}
+        self._launch_args = {}
 
     def on(self, device):
-        """(m_lo, src_idx) tensors."""
+        """(m_lo, src_idx) tensors of the kernel's groups."""
         if device not in self._device_tables:
+            g = self.tables.kernel_groups
             self._device_tables[device] = (
-                torch.as_tensor(self.m_lo, device=device),
-                torch.as_tensor(self.src_idx, device=device))
+                torch.as_tensor(self.m_lo[g], device=device),
+                torch.as_tensor(self.src_idx[g], device=device))
         return self._device_tables[device]
 
 
@@ -210,6 +348,24 @@ def xor_apply_reference(x, tables):
     planes (one block holding every row)."""
     return xor_apply_sharded_reference([x], tables.for_layout(tables.nbits),
                                        0)
+
+
+def xor_diagonal_reference(tables, row0, dtype, device):
+    """The plain PyTorch version of the diagonal kernel: rows [row0, row0 +
+    local_dim) of d(k) = sum_t c_t (-1)^parity(k & s_t) over the diagonal's
+    terms of a :class:`ShardedXorTables`, as (1, local_dim) real planes, or
+    (2, local_dim) when a coefficient is complex."""
+    t = tables.tables
+    k = torch.arange(tables.local_dim, dtype=torch.int64,
+                     device=device) + int(row0)
+    d = torch.zeros((2 if t.has_imag_diag else 1, tables.local_dim),
+                    dtype=dtype, device=device)
+    for s, c in zip(t.diag_s, t.diag_c):
+        w = (1 - 2 * parity(k & int(s))).to(dtype)
+        d[0] += float(c.real) * w
+        if t.has_imag_diag:
+            d[1] += float(c.imag) * w
+    return d
 
 
 def _find_nvcc():
@@ -251,14 +407,34 @@ def build_library():
     return {'path': lib, 'seconds': seconds, 'log': proc.stdout + proc.stderr}
 
 
+class _XorArgs(ctypes.Structure):
+    """``XorArgs`` of the CUDA source, field for field."""
+    _fields_ = [('src', ctypes.c_void_p * MAX_SOURCES),
+                ('n_srcs', ctypes.c_int32),
+                ('diag_src', ctypes.c_int32),
+                ('y', ctypes.c_void_p),
+                ('diag', ctypes.c_void_p),
+                ('diag_planes', ctypes.c_int32),
+                ('tile_bits', ctypes.c_int32),
+                ('local_dim', ctypes.c_int64),
+                ('row0', ctypes.c_int64),
+                ('rows_per_thread', ctypes.c_int32),
+                ('n_groups', ctypes.c_int32),
+                ('n_slots', ctypes.c_int32),
+                ('pad', ctypes.c_int32)] + [
+                    (name, ctypes.c_void_p) for name in (
+                        'group_mlo', 'group_src', 'group_flags',
+                        'class_start', 'slot_slo', 'slot_term_start',
+                        'term_shi', 'term_cr', 'term_ci')]
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     info = build_library()
     lib = ctypes.CDLL(str(info['path']))
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for fn in (lib.xor_apply_f32, lib.xor_apply_f64):
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), i32, ptr, i64, i64,
-                       i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    for fn in (lib.xor_apply_f32, lib.xor_apply_f64, lib.xor_diagonal_f32,
+               lib.xor_diagonal_f64):
+        fn.argtypes = [ctypes.POINTER(_XorArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.xor_apply_error_string.argtypes = [ctypes.c_int]
     lib.xor_apply_error_string.restype = ctypes.c_char_p
@@ -266,6 +442,48 @@ def _library():
 
 
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block can use
+
+
+@functools.lru_cache(maxsize=None)
+def _capability(device):
+    return torch.cuda.get_device_capability(device)
+
+
+def _check_card(x, what):
+    if x.device.type != 'cuda':
+        raise ValueError(f'{what}: unsupported device {x.device}')
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'{what}: dtype must be float32 or float64, got '
+                        f'{x.dtype}')
+    if _capability(x.device) != (9, 0):
+        raise RuntimeError(f'{what}: the kernel is built for sm_90a '
+                           '(Hopper); this device is sm_%d%d'
+                           % _capability(x.device))
+
+
+def _args(plan, tables, row0, dtype, device):
+    """The XorArgs of a launch over the tables of a :class:`TilePlan`, but
+    for the output and the sources."""
+    a = _XorArgs()
+    a.tile_bits = plan.tile_bits
+    a.rows_per_thread = plan.rows_per_thread
+    a.local_dim = tables.local_dim
+    a.row0 = int(row0)
+    a.n_groups = plan.n_groups
+    a.n_slots = plan.n_slots
+    for name, tensor in plan.on(device, dtype).items():
+        setattr(a, name, tensor.data_ptr())
+    return a
+
+
+def _run(fn, args, device, what):
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f'{what} kernel launch failed: '
+                           + lib.xor_apply_error_string(err).decode())
 
 
 def _launch(srcs, tables, row0):
@@ -280,11 +498,8 @@ def _launch(srcs, tables, row0):
         raise NotImplementedError(f'xor_apply: {len(srcs)} source blocks '
                                   f'exceed the kernel\'s {MAX_SOURCES}')
     x = srcs[0]
-    if x.device.type != 'cuda':
-        raise ValueError(f'xor_apply: unsupported device {x.device}')
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f'xor_apply: dtype must be float32 or float64, got '
-                        f'{x.dtype}')
+    _check_card(x, 'xor_apply')
+    rows = tile_shape(tables.local_bits, x.element_size())[1]
     for s in srcs:
         if s.shape != (2, n):
             raise ValueError(f'xor_apply: expected shape (2, {n}), got '
@@ -294,36 +509,97 @@ def _launch(srcs, tables, row0):
                              'dtype')
         if not s.is_contiguous():
             raise ValueError('xor_apply: x must be contiguous')
+        if s.data_ptr() % (rows * s.element_size()):
+            raise ValueError(f'xor_apply: a source block is not aligned to '
+                             f'{rows * s.element_size()} bytes')
     if row0 % n or not 0 <= row0 < t.dim:
         raise ValueError(f'xor_apply: row offset {row0} is not a block start')
-    if torch.cuda.get_device_capability(x.device) != (9, 0):
-        raise RuntimeError('xor_apply: the kernel is built for sm_90a '
-                           '(Hopper); this device is sm_%d%d'
-                           % torch.cuda.get_device_capability(x.device))
-    if t.smem_bytes(x.element_size()) > _MAX_SMEM:
-        raise NotImplementedError(
-            f'xor_apply: {t.n_terms} terms exceed the shared-memory tables; '
-            'many-mask operators (SYK) need the XOR-dense engine '
-            '(ROADMAP.md queue 1, item 9)')
-    if -(-n // THREADS) >= 1 << 31:
-        raise ValueError('xor_apply: dimension exceeds one launch grid')
 
-    lib = _library()
-    start, sgn, cr, ci = t.on(x.device, x.dtype)
-    m_lo, src_idx = tables.on(x.device)
-    ptrs = (ctypes.c_void_p * len(srcs))(*(s.data_ptr() for s in srcs))
+    a = _XorArgs.from_buffer_copy(_block_args(tables, row0, x.dtype,
+                                              x.device))
+    for i, s in enumerate(srcs):
+        a.src[i] = s.data_ptr()
+    a.n_srcs = len(srcs)
     y = torch.empty_like(x)
-    fn = lib.xor_apply_f32 if x.dtype == torch.float32 else lib.xor_apply_f64
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(ptrs, len(srcs), y.data_ptr(), n, int(row0), t.n_groups,
-                 t.n_terms, m_lo.data_ptr(), src_idx.data_ptr(),
-                 start.data_ptr(), sgn.data_ptr(), cr.data_ptr(),
-                 ci.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError('xor_apply kernel launch failed: '
-                           + lib.xor_apply_error_string(err).decode())
+    a.y = y.data_ptr()
+    _run('xor_apply_f32' if x.dtype == torch.float32 else 'xor_apply_f64',
+         a, x.device, 'xor_apply')
     return y
+
+
+def _block_args(tables, row0, dtype, device):
+    """The XorArgs of the launches on one block of a
+    :class:`ShardedXorTables`, but for the output and the sources: built at
+    the block's first launch (with its diagonal stream) and kept on the
+    layout per (dtype, device, row0), so a launch only copies it. Every
+    pointer in it is to a tensor the tables keep."""
+    key = (dtype, device, int(row0))
+    if key not in tables._launch_args:
+        t = tables.tables
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        tile_bits, rows = tile_shape(tables.local_bits, itemsize)
+        plan = t.tiles(tile_bits, rows)
+        if plan.smem_bytes(itemsize) > _MAX_SMEM:
+            raise NotImplementedError(
+                f'xor_apply: {t.n_terms} terms exceed the shared-memory '
+                'tables; many-mask operators (SYK) need the XOR-dense engine '
+                '(ROADMAP.md queue 1, item 9)')
+        if tables.local_dim >> tile_bits >= 1 << 31:
+            raise ValueError('xor_apply: dimension exceeds one launch grid')
+        a = _args(plan, tables, row0, dtype, device)
+        m_lo, src_idx = tables.on(device)
+        a.group_mlo = m_lo.data_ptr()
+        a.group_src = src_idx.data_ptr()
+        if t.use_diag:
+            d = _diagonal(tables, row0, dtype, device)
+            a.diag = d.data_ptr()
+            a.diag_planes = d.shape[0]
+            a.diag_src = tables.diag_src
+        tables._launch_args[key] = a
+    return tables._launch_args[key]
+
+
+def _diagonal(tables, row0, dtype, device):
+    """The diagonal stream of one block, built at first use and kept on the
+    :class:`XorTables` per (dtype, device, row0, local_bits): one plane of
+    local_dim rows (two when a coefficient is complex)."""
+    cache = tables.tables._diagonals
+    key = (dtype, device, int(row0), tables.local_bits)
+    if key not in cache:
+        cache[key] = xor_diagonal(tables, row0, dtype, device)
+    return cache[key]
+
+
+def xor_diagonal(tables, row0, dtype, device):
+    """Rows [row0, row0 + local_dim) of the diagonal d(k) of a
+    :class:`ShardedXorTables` whose ``use_diag`` is set, as
+    :func:`xor_diagonal_reference` gives them.
+
+    On a CUDA device it launches the diagonal kernel and counts one launch
+    in ``xor_diagonal.launches``; on the CPU it runs the plain version."""
+    t = tables.tables
+    if not t.use_diag:
+        raise ValueError('xor_diagonal: the operator has no diagonal stream')
+    device = torch.device(device)
+    if device.type == 'cpu':
+        return xor_diagonal_reference(tables, row0, dtype, device)
+    d = torch.empty((2 if t.has_imag_diag else 1, tables.local_dim),
+                    dtype=dtype, device=device)
+    _check_card(d, 'xor_diagonal')
+    plan = t.diag_tiles(*tile_shape(tables.local_bits, d.element_size()))
+    if plan.smem_bytes(d.element_size()) > _MAX_SMEM:
+        raise NotImplementedError(f'xor_diagonal: {len(t.diag_s)} terms '
+                                  'exceed the shared-memory tables')
+    a = _args(plan, tables, row0, dtype, device)
+    a.y = d.data_ptr()
+    a.diag_planes = d.shape[0]
+    _run('xor_diagonal_f32' if dtype == torch.float32 else 'xor_diagonal_f64',
+         a, device, 'xor_diagonal')
+    xor_diagonal.launches += 1
+    return d
+
+
+xor_diagonal.launches = 0
 
 
 def xor_apply(x, tables):
@@ -340,10 +616,12 @@ def xor_apply_sharded(srcs, tables, row0):
     :class:`ShardedXorTables` (see :func:`xor_apply_sharded_reference`).
 
     CUDA tensors run the hand-written kernel (built at first use), with one
-    source per entry of ``hi_list`` and the global row offset, and count one
-    launch in ``xor_apply_sharded.launches``; CPU tensors run the plain
-    version. Nothing falls back: an unusable input or a failed build or
-    launch raises."""
+    source per entry of ``hi_list``, the global row offset and, when the
+    operator has one, the block's diagonal stream (built at the block's
+    first launch, see :func:`xor_diagonal`); they count one launch in
+    ``xor_apply_sharded.launches``. CPU tensors run the plain version.
+    Nothing falls back: an unusable input or a failed build or launch
+    raises."""
     if tables.tables.n_groups == 0:
         raise ValueError('xor_apply_sharded: an operator with no terms has '
                          'no source blocks')

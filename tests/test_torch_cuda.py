@@ -66,13 +66,33 @@ def _planes(dim, seed=0):
     return x / np.linalg.norm(x)
 
 
+def _few_diag(L):
+    """XX hopping plus a mask-0 group of 2 terms: below the 4 terms that
+    turn the diagonal into a stream, so mask 0 runs as an ordinary group."""
+    from dynamite_tpu_torch.operators import sigmaz
+    H = models.xx(L) + 0.3 * sigmaz(0) * sigmaz(1) + 0.2 * sigmaz(5)
+    assert 0 < len(H.msc) and sum(H.msc['masks'] == 0) == 2
+    return H
+
+
+def _model(name, L=L):
+    return _few_diag(L) if name == 'few_diag' else getattr(models, name)(L)
+
+
+@pytest.mark.parametrize('model', ['mbl', 'few_diag', 'long_range',
+                                   'heisenberg'])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('space', SPACES)
-def test_kernel_vs_plain_on_card(card, space, dtype):
-    H = models.mbl(L)
+def test_kernel_vs_plain_on_card(card, space, dtype, model):
+    """mbl has a diagonal stream, few_diag keeps mask 0 in the group loop,
+    long_range has 50+ diagonal terms and complex group coefficients,
+    heisenberg's XX + YY groups above the tile cancel in half the tiles,
+    which skip them; L=13 holds several tiles."""
+    H = _model(model)
     H.allow_projection = True
     H.add_subspace(_sub(space))
     tables = H.get_mat().tables
+    assert tables.use_diag == (model != 'few_diag')
     x = torch.from_numpy(_planes(tables.dim)).to(card, dtype)
     before = xor_apply_sharded.launches
     y = xor_apply(x, tables)
@@ -152,13 +172,19 @@ def test_evolve_and_eigsolve_on_card(card, space):
 def test_sharded_kernel_vs_plain_on_card(card, space, dtype, P):
     """The sharded route on P virtual shards of one vector: each shard from
     its row offset and its partner blocks, against the plain version; put
-    together, they equal the one-device kernel exactly."""
+    together, they equal the one-device kernel exactly where a block holds
+    whole tiles of the one-device launch (both launches then merge the same
+    slots in the same order), and within the tolerance where the tile
+    shrinks to a smaller block (its slots merge other terms)."""
+    from dynamite_tpu_torch.ops.xor_apply import tile_shape
     H = models.mbl(L)
     H.allow_projection = True
     H.add_subspace(_sub(space))
     tables = H.get_mat().tables
     x = torch.from_numpy(_planes(tables.dim)).to(card, dtype)
     st = tables.for_layout(tables.nbits - (P.bit_length() - 1))
+    same_tiles = (tile_shape(st.local_bits, x.element_size())
+                  == tile_shape(tables.nbits, x.element_size()))
     n = st.local_dim
     blocks = [x[:, b * n:(b + 1) * n].contiguous() for b in range(P)]
     tol = 1e-5 if dtype == torch.float32 else 1e-12
@@ -172,7 +198,71 @@ def test_sharded_kernel_vs_plain_on_card(card, space, dtype, P):
         parts.append(y)
     torch.cuda.synchronize()
     assert xor_apply_sharded.launches == before + P
-    assert torch.equal(torch.cat(parts, dim=1), xor_apply(x, tables))
+    whole = xor_apply(x, tables)
+    got = torch.cat(parts, dim=1)
+    if same_tiles:
+        assert torch.equal(got, whole)
+    else:
+        assert float((got - whole).abs().max() / whole.abs().max()) <= tol
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_blocks_smaller_than_a_tile_on_card(card, dtype):
+    """Blocks of 32 rows down to 1 row (fewer than the R rows of a thread):
+    the tile shrinks to the block, so each shard is held against its plain
+    version, and the shards put together against the one-device kernel,
+    within the tolerance (smaller tiles merge other slots)."""
+    H = models.long_range(5)
+    H.add_subspace(subspaces.Full(L=5))
+    tables = H.get_mat().tables
+    x = torch.from_numpy(_planes(tables.dim)).to(card, dtype)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    whole = xor_apply(x, tables)
+    for P in (1, 4, 16, 32):
+        st = tables.for_layout(tables.nbits - (P.bit_length() - 1))
+        n = st.local_dim
+        blocks = [x[:, b * n:(b + 1) * n].contiguous() for b in range(P)]
+        parts = []
+        for me in range(P):
+            srcs = [blocks[me ^ h] for h in st.hi_list]
+            y = xor_apply_sharded(srcs, st, me * n)
+            want = xor_apply_sharded_reference(srcs, st, me * n)
+            assert float((y - want).abs().max()) <= tol * float(
+                whole.abs().max())
+            parts.append(y)
+        got = torch.cat(parts, dim=1)
+        assert float((got - whole).abs().max() / whole.abs().max()) <= tol
+
+
+def test_diagonal_builds_once_per_layout(card):
+    """The diagonal stream is built once per (operator, dtype, device,
+    layout) and counted in xor_diagonal.launches, apart from the matvec's
+    one launch per apply; it equals its plain version."""
+    from dynamite_tpu_torch.ops.xor_apply import (xor_diagonal,
+                                                  xor_diagonal_reference)
+    H = models.localized(L)
+    H.add_subspace(_sub('full'))
+    tables = H.get_mat().tables
+    x = torch.from_numpy(_planes(tables.dim)).to(card, torch.float32)
+    builds, launches = xor_diagonal.launches, xor_apply_sharded.launches
+    for _ in range(3):
+        xor_apply(x, tables)
+    assert xor_diagonal.launches == builds + 1
+    xor_apply(x.double(), tables)
+    assert xor_diagonal.launches == builds + 2
+    st = tables.for_layout(tables.nbits - 1)
+    n = st.local_dim
+    blocks = [x[:, :n].contiguous(), x[:, n:].contiguous()]
+    for _ in range(2):
+        for me in range(2):
+            xor_apply_sharded([blocks[me ^ h] for h in st.hi_list], st,
+                              me * n)
+    assert xor_diagonal.launches == builds + 4
+    assert xor_apply_sharded.launches == launches + 8
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        d = xor_diagonal(st, n, dtype, card)
+        want = xor_diagonal_reference(st, n, dtype, card)
+        assert float((d - want).abs().max() / want.abs().max()) <= tol
 
 
 def test_distributed_dot_on_nccl(card, tmp_path):
