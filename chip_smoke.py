@@ -7,37 +7,59 @@ built for sm_90a).
 
 Runs from the root of a checkout, builds the XOR matvec kernel from
 ``dynamite_tpu_torch/csrc/xor_apply.cu`` at first use, and drives the port's
-main path at L=24 (dim 2**24) with the random-field Heisenberg chain:
+main paths at L=24 with the random-field Heisenberg chain: on Full(24) (dim
+2**24) through the kernel, and in the half-filling sector SpinConserve(24,
+12) (dim 2,704,156) through the sector engine:
 
 1. environment: torch/CUDA versions, the card, its power limit, build time,
    ptxas registers and spills of each kernel;
 2. ``kernel``: the one-device route against its plain PyTorch version on the
-   card, Full and both Parity sectors and long_range(24), float32 and
-   float64, with times, nnz/s, the bound, cuSPARSE's CSR SpMV of the same
-   matrix, and the diagonal stream's build (its own kernel) against its
-   plain version, with its time and bytes;
+   card, Full and both Parity sectors, long_range(24), and localized(24) on
+   XParity(Full(24)) in both sectors, float32 and float64, with times,
+   nnz/s, the bound, cuSPARSE's CSR SpMV of the same matrix, and the
+   diagonal stream's build (its own kernel) against its plain version, with
+   its time and bytes;
 3. ``kernel_sharded``: the sharded route on P = 1, 2, 4, 8 virtual shards
-   of one vector, each from its row offset and partner blocks: put together
-   equal to the one-device route, each shard against its plain version;
-4. ``evolve``: L=14 against scipy's expm_multiply, then L=24;
-5. ``eigsolve``: float64 at L=16 in a child process (precision is fixed at
-   initialization) against scipy's eigsh, then float32 at L=24;
-6. ``distributed``: one child process per GPU, on NCCL, runs evolve and
+   of one vector, each from its row offset and partner blocks, on the same
+   cases: put together equal to the one-device route, each shard against
+   its plain version;
+4. ``sector``: the sector engine (dense matmuls, torch ops) against its
+   plain version (the on-the-fly row sweep) on the card: heisenberg(24) on
+   SpinConserve(24, 12), localized(24) on XParity(SpinConserve(24, 12)),
+   heisenberg(26) on SpinConserve(26, 13), float32 (float64 in the child
+   process of phase 6), with times, build time, channels, matmuls, table
+   bytes, dense GFLOP/s, bounds, launches per apply and the device idle
+   share from torch.profiler, and cuSPARSE's CSR SpMV of the same matrix;
+5. ``evolve``: L=14 against scipy's expm_multiply, then L=24;
+6. ``eigsolve``: a child process in float64 (precision is fixed at
+   initialization): L=16 against scipy's eigsh, the sector engine's float64
+   record, and eigsolve(localized(22)) on SpinConserve(22, 11) to 1e-10;
+   then float32 at L=24 on Full(24) and on XParity(Full(24), '+');
+7. ``sector_solves``: evolve and eigsolve of localized(24) on
+   SpinConserve(24, 12), and the eigsolve on XParity(SpinConserve(24, 12),
+   '+'), float32, with a profile of where the eigsolve's device time goes;
+8. ``distributed``: one child process per GPU, on NCCL, runs evolve and
    eigsolve at L=24 through the sharded route (one rank on a one-GPU
    machine: no exchange), and with two GPUs or more holds the gathered
    ``H.dot`` against the one-device route.
 
-Each phase prints one JSON line; any failure raises (non-zero exit). The
-last lines are the card's ``nvidia-smi`` name and power limit, the kernel
-records (the matvec kernel on each route, and the diagonal kernel), and
-``{"ok": true, "device": {...}}``. Exits non-zero without a
-result when no CUDA device is available or the package is missing.
+Each phase prints one JSON line (the sector engine's records also one
+``{"engines": [...]}`` line); any failure raises (non-zero exit). The last
+lines are the card's ``nvidia-smi`` name and power limit, the kernel records
+(the matvec kernel on each route, and the diagonal kernel), and
+``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
+CUDA device is available or the package is missing.
 
     python3 chip_smoke.py --group-costs
 
 times the matvec kernel on synthetic L=24 operators instead, to show what
 one mask group costs by where its partner rows lie, and localized(24) with
 and without the diagonal stream (see group_costs).
+
+    python3 chip_smoke.py --sector-forms
+
+times the sector engine's one product per column channel against the JAX
+package's batching of the channels that share a matrix (see sector_forms).
 """
 
 import json
@@ -51,16 +73,28 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CHILD_FLAG = '--child-eigsolve-double'
 CHILD_DIST = '--child-distributed'
 GROUP_COSTS = '--group-costs'
+SECTOR_FORMS = '--sector-forms'
 
 # error bounds of the kernel against its plain version: max|dy| / max|y|.
 # Both sum the same terms in float arithmetic of the working type but in
 # different orders, so they differ by a few ulps of the largest partial sum.
 KERNEL_TOL = {'float32': 1e-5, 'float64': 1e-12}
 
-# an H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s
-# and non-tensor-core FLOP/s per type, for the kernels' bounds
+# an H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s;
+# FLOP/s per type outside the tensor cores, for the hand kernels and the
+# matrix-free bounds; and the dense products' peak, for the sector engine's
+# cuBLAS GEMMs: SGEMM on the CUDA cores (TF32 off), DGEMM on the FP64 tensor
+# cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {'float32': 67e12, 'float64': 34e12}
+GEMM_PEAK_FLOPS = {'float32': 67e12, 'float64': 67e12}
+
+# the ground-state energies the JAX package printed for its eigsolve_L24
+# (localized(24) on SpinConserve(24, 12)) and double_L22 stages
+# (BENCH_r05.json, two decimals); an eigenvalue does not depend on the chip
+EVAL0_SC24 = -43.38
+EVAL0_SC22 = -39.65
+EVAL0_TOL = 0.01
 
 
 def emit(obj):
@@ -149,24 +183,35 @@ def ptxas_records(log):
 
 
 def kernel_cases(L):
+    """The kernel's cases: (name, H, its kernel, the plain version's
+    (reps, warm-up) for timing)."""
     from dynamite_tpu_torch.models import (localized, heisenberg, ising,
                                            long_range)
-    from dynamite_tpu_torch.subspaces import Full, Parity
-    cases = []
-    for name, H, sub in (
-            ('localized_full', localized(L), Full(L=L)),
-            ('heisenberg_parity_even', heisenberg(L), Parity('even', L=L)),
-            # ising's X field leaves the sector: with projection allowed the
-            # odd sector keeps the ZZ terms, whose sign masks hit bit 0 and
-            # exercise the Parity sign folding of _effective_sign_mask
-            ('ising_parity_odd', ising(L), Parity('odd', L=L)),
-            # ~300 diagonal terms (all-pairs ZZ), and complex single-site
-            # groups (X + Y fields)
-            ('long_range_full', long_range(L), Full(L=L))):
+    from dynamite_tpu_torch.subspaces import Full, Parity, XParity
+    cases = (
+        ('localized_full', localized(L), Full(L=L), (20, 3)),
+        ('heisenberg_parity_even', heisenberg(L), Parity('even', L=L),
+         (20, 3)),
+        # ising's X field leaves the sector: with projection allowed the
+        # odd sector keeps the ZZ terms, whose sign masks hit bit 0 and
+        # exercise the Parity sign folding of _effective_sign_mask
+        ('ising_parity_odd', ising(L), Parity('odd', L=L), (20, 3)),
+        # ~300 diagonal terms (all-pairs ZZ), and complex single-site
+        # groups (X + Y fields); the plain version takes ~1 s a call
+        ('long_range_full', long_range(L), Full(L=L), (3, 1)),
+        # the random Z field leaves the X-parity sectors and is projected
+        # away; the rewritten masks that touched spin L-1 fold onto
+        # m ^ (2**L - 1), reaching nearly every bit
+        ('localized_xparity_full_plus', localized(L),
+         XParity(Full(L=L), '+'), (5, 1)),
+        ('localized_xparity_full_minus', localized(L),
+         XParity(Full(L=L), '-'), (5, 1)))
+    out = []
+    for name, H, sub, plain_reps in cases:
         H.allow_projection = True
         H.add_subspace(sub)
-        cases.append((name, H, H.get_mat(subspaces=(sub, sub))))
-    return cases
+        out.append((name, H, H.get_mat(subspaces=(sub, sub)), plain_reps))
+    return out
 
 
 def phase_kernel(L=24):
@@ -175,10 +220,8 @@ def phase_kernel(L=24):
     from dynamite_tpu_torch.ops.xor_apply import (xor_apply,
                                                   xor_apply_reference)
     rows = []
-    for name, H, kernel in kernel_cases(L):
+    for name, H, kernel, plain_reps in kernel_cases(L):
         tables = kernel.tables
-        # the plain version of ~400 terms takes ~1 s a call
-        plain_reps = (3, 1) if tables.n_terms > 200 else (20, 3)
         for dtype in (torch.float32, torch.float64):
             dt = str(dtype).replace('torch.', '')
             x = random_planes(tables.dim, dtype, seed=7)
@@ -344,7 +387,7 @@ def phase_kernel_sharded(single_rows, L=24):
         xor_apply, xor_apply_sharded, xor_apply_sharded_reference)
     single_ms = {(r['case'], r['dtype']): r['ms'] for r in single_rows}
     rows = []
-    for name, H, kernel in kernel_cases(L):
+    for name, H, kernel, _plain_reps in kernel_cases(L):
         tables = kernel.tables
         for dtype in (torch.float32, torch.float64):
             dt = str(dtype).replace('torch.', '')
@@ -395,31 +438,265 @@ def phase_kernel_sharded(single_rows, L=24):
     return rows
 
 
-def counted(fn, what):
+def profile_window(fn, n=10, top=0, warmup=True):
+    """torch.profiler, tracing the device only (no host op events, which
+    would slow the host and fill the trace), over n calls of fn (after one
+    unprofiled call, with ``warmup``): the
+    CUDA kernels launched per call, and the device's idle share over the
+    window: 1 - (union of the busy intervals of kernels, copies and fills)
+    / (first device op's start to the last one's end). With ``top``, also
+    the ``top`` kernel names by device time. None where the profiler saw no
+    device op."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ops = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not ops:
+        return {'launches_per_call': None, 'busy_ms': None, 'span_ms': None,
+                'idle_share': None}
+    kernels = [o for o in ops if not o[2].startswith(('Memcpy', 'Memset'))]
+    busy, reached = 0.0, ops[0][0]
+    for start, end, _name in ops:
+        if end > reached:
+            busy += end - max(start, reached)
+            reached = end
+    span = reached - ops[0][0]
+    out = {'launches_per_call': len(kernels) / n,
+           'device_ops_per_call': len(ops) / n,
+           'busy_ms': busy / 1e3 / n, 'span_ms': span / 1e3 / n,
+           'idle_share': 1 - busy / span if span > 0 else None}
+    if top:
+        by_name = {}
+        for start, end, name in kernels:
+            ms, count = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + (end - start) / 1e3, count + 1)
+        out['top_kernels'] = [
+            {'name': name[:80], 'ms': ms / n, 'launches': count / n}
+            for name, (ms, count) in sorted(by_name.items(),
+                                            key=lambda kv: -kv[1][0])[:top]]
+    return out
+
+
+def matrix_free_flops(plan):
+    """The float operations of a matrix-free apply of the operator's plan,
+    counted as :func:`flops_per_row` counts them (per row and group: one add
+    per nonzero part of each term's coefficient, 4 per nonzero part of f_g
+    times the complex x), for every row and group, partners outside the
+    subspace included."""
+    import numpy as np
+    per_row = 0
+    for _m, _perm, _signs, coeffs in plan.groups:
+        re, im = np.count_nonzero(coeffs.real), np.count_nonzero(coeffs.imag)
+        per_row += re + im + 4 * (bool(re) + bool(im))
+    return plan.dim_left * per_row
+
+
+def sector_library_spmv(plan, x, y_engine):
+    """The sector engine's yardstick: cuSPARSE's CSR SpMV (int32 indices,
+    complex in x's precision) of the same matrix, its entries found by the
+    plain version's row sweep on the card (the nonzero ones only), times
+    the same vector. Returns (ms, max|dy|/max|y| against the engine, nnz).
+    The port never calls it; the matrix is freed before returning."""
+    import torch
+    from dynamite_tpu_torch.ops.index_maps import parity
+    from dynamite_tpu_torch.ops.sector_apply import CHUNK_BITS
+    dev, dim = x.device, plan.dim_left
+    cdt = torch.complex64 if x.dtype == torch.float32 else torch.complex128
+    rows_all, cols_all, vals_all = [], [], []
+    for start in range(0, dim, 1 << CHUNK_BITS):
+        rows = torch.arange(start, min(start + (1 << CHUNK_BITS), dim),
+                            dtype=torch.int64, device=dev)
+        kets = plan.row_states(rows)
+        for m, _perm, signs, coeffs in plan.groups:
+            bra = kets ^ m
+            f = torch.zeros(rows.shape, dtype=torch.complex128, device=dev)
+            for s, c in zip(signs, coeffs):
+                f += complex(c) * (1 - 2 * parity(bra & int(s))).double()
+            col, valid = plan.right_map.s2i(bra)
+            keep = valid & (f != 0)
+            rows_all.append(rows[keep])
+            cols_all.append(col[keep])
+            vals_all.append(f[keep].to(cdt))
+    A = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows_all), torch.cat(cols_all)]),
+        torch.cat(vals_all), (dim, plan.dim_right)).coalesce()
+    del rows_all, cols_all, vals_all
+    nnz = A._nnz()
+    A = A.to_sparse_csr()
+    A = torch.sparse_csr_tensor(A.crow_indices().int(),
+                                A.col_indices().int(), A.values(),
+                                size=A.shape)
+    xc = torch.complex(x[0], x[1])
+    y = A @ xc
+    ye = torch.complex(y_engine[0], y_engine[1])
+    err = float((y - ye).abs().max() / ye.abs().max())
+    ms = cuda_ms(lambda: A @ xc)
+    del A, xc, y, ye
+    torch.cuda.empty_cache()
+    return ms, err, nnz
+
+
+def sector_record(name, H, sub, dtype, plain_reps=(3, 1), plain_profiled=1):
+    """Build the sector engine of H on sub (the host build, timed), hold its
+    apply against the plain version on the card (max|dy| / max|y| within
+    KERNEL_TOL), time both (CUDA events), profile 10 applies of the engine
+    and ``plain_profiled`` of the plain version (none when 0: one call makes
+    ~25k launches at L=24), and count the engine's
+    channels, matmuls, table bytes and dense GFLOP per apply. The bytes
+    bound reads x and writes y once and reads the tables once, at HBM rate;
+    the dense bound is the products' operations at cuBLAS's GEMM peak of
+    the type (``GEMM_PEAK_FLOPS``); the
+    matrix-free bound takes x and y with :func:`matrix_free_flops`, which
+    also gives both forms a rate of the same useful work. The yardstick is
+    cuSPARSE's SpMV of the same matrix (:func:`sector_library_spmv`)."""
+    import torch
+    from dynamite_tpu_torch.ops.sector_apply import sector_apply_reference
+    dt = str(dtype).replace('torch.', '')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernel = H.get_mat(subspaces=(sub, sub))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sp, tables = kernel.sector_plan, kernel.sector_tables
+    if sp is None:
+        raise RuntimeError(f'{name}: the sector engine was not built')
+    dim = sub.get_dimension()
+    x = random_planes(dim, dtype, seed=13)
+    y = kernel.apply(x)
+    y_plain = sector_apply_reference(x, kernel.plan)
+    torch.cuda.synchronize()
+    if not torch.isfinite(y).all():
+        raise RuntimeError(f'{name} {dt}: non-finite sector engine output')
+    abs_err = float((y - y_plain).abs().max())
+    rel_err = abs_err / float(y_plain.abs().max())
+    ms = cuda_ms(lambda: kernel.apply(x))
+    plain_ms = cuda_ms(lambda: sector_apply_reference(x, kernel.plan),
+                       *plain_reps)
+    prof = profile_window(lambda: kernel.apply(x))
+    plain_prof = profile_window(
+        lambda: sector_apply_reference(x, kernel.plan), n=plain_profiled,
+        warmup=False) if plain_profiled else {}
+    lib_ms, lib_err, lib_nnz = sector_library_spmv(kernel.plan, x, y)
+    itemsize = x.element_size()
+    xy_bytes = 2 * 2 * dim * itemsize
+    by_bytes = (xy_bytes + sp.table_bytes) / HBM_BYTES_PER_S * 1e3
+    by_dense = tables.dense_flops / GEMM_PEAK_FLOPS[dt] * 1e3
+    mf_flops = matrix_free_flops(kernel.plan)
+    rec = {'case': name, 'dtype': dt, 'L': sub.L, 'dim': dim,
+           'sectors': len(sp.secs), 'col_channels': len(sp.col_channels),
+           'row_channels': len(sp.row_channels),
+           'matmuls_per_apply': tables.n_matmuls,
+           'table_mb': sp.table_bytes / 1e6, 'build_s': build_s,
+           'conserved': sp.conserved,
+           'max_abs_err': abs_err, 'rel_err': rel_err,
+           'tol': KERNEL_TOL[dt], 'ms': ms, 'plain_ms': plain_ms,
+           'dense_gflop_per_apply': tables.dense_flops / 1e9,
+           'dense_gflop_per_s': tables.dense_flops / (ms * 1e-3) / 1e9,
+           'bytes_bound_ms': by_bytes, 'dense_bound_ms': by_dense,
+           'bound_ms': max(by_bytes, by_dense),
+           'bound_by': 'bytes' if by_bytes >= by_dense else 'operations',
+           'matrix_free_gflop_per_apply': mf_flops / 1e9,
+           'matrix_free_bound_ms': max(
+               xy_bytes / HBM_BYTES_PER_S,
+               mf_flops / PEAK_FLOPS[dt]) * 1e3,
+           'matrix_free_gflop_per_s': mf_flops / (ms * 1e-3) / 1e9,
+           'plain_matrix_free_gflop_per_s': mf_flops / (plain_ms * 1e-3) / 1e9,
+           'launches_per_apply': prof['launches_per_call'],
+           'device_ops_per_apply': prof.get('device_ops_per_call'),
+           'device_busy_ms_per_apply': prof['busy_ms'],
+           'idle_share': prof['idle_share'],
+           'plain_launches_per_apply': plain_prof.get('launches_per_call'),
+           'plain_device_busy_ms_per_apply': plain_prof.get('busy_ms'),
+           'plain_idle_share': plain_prof.get('idle_share'),
+           'library_ms': lib_ms, 'library_rel_err': lib_err,
+           'library_nnz': lib_nnz,
+           'library_bytes_bound_ms': (
+               xy_bytes + lib_nnz * (2 * itemsize + 4) + 4 * (dim + 1))
+           / HBM_BYTES_PER_S * 1e3}
+    if not rel_err <= KERNEL_TOL[dt]:
+        emit({'phase': 'sector', 'cases': [rec]})
+        raise RuntimeError(f'{name} {dt}: the sector engine disagrees with '
+                           f'its plain version ({rel_err:.3e})')
+    # the library's values and sums are in another order than the engine's
+    if not lib_err <= 10 * KERNEL_TOL[dt]:
+        emit({'phase': 'sector', 'cases': [rec]})
+        raise RuntimeError(f'{name} {dt}: the CSR yardstick disagrees with '
+                           f'the sector engine ({lib_err:.3e})')
+    return rec
+
+
+def phase_sector(L=24):
+    """The sector engine at L and L + 2, float32 (see sector_record)."""
+    import torch
+    from dynamite_tpu_torch.models import heisenberg, localized
+    from dynamite_tpu_torch.subspaces import SpinConserve, XParity
+    recs = []
+    for name, make_H, make_sub in (
+            # the JAX bench's spinconserve_L24 operator
+            (f'heisenberg_sc{L}', lambda: heisenberg(L),
+             lambda: SpinConserve(L, L // 2)),
+            # the Z field leaves the X-parity sectors: projected away
+            (f'localized_xparity_sc{L}_plus', lambda: localized(L),
+             lambda: XParity(SpinConserve(L, L // 2), '+')),
+            (f'heisenberg_sc{L + 2}', lambda: heisenberg(L + 2),
+             lambda: SpinConserve(L + 2, L // 2 + 1))):
+        H, sub = make_H(), make_sub()
+        H.allow_projection = True
+        H.add_subspace(sub)
+        # the plain version takes ~1.8 s a call at L=26; the XParity case
+        # is timed, not profiled
+        recs.append(sector_record(
+            name, H, sub, torch.float32,
+            plain_reps=(2, 1) if sub.L > L else (3, 1),
+            plain_profiled=0 if 'xparity' in name else 1))
+        del H
+        torch.cuda.empty_cache()
+    emit({'phase': 'sector', 'cases': recs})
+    return recs
+
+
+def counted(fn, what, engine='xor'):
     """Run the main-path call ``fn`` with the kernels' launch counts set
     to 0 just before it and read just after, so no check's own launch is
     counted: ``xor_apply_sharded.launches`` (the one wrapper that launches
     the matvec kernel) and ``xor_diagonal.launches`` (the diagonal stream's
-    builds, once per operator, dtype and layout). Raises unless the matvec
-    kernel ran at least once per matvec the solver counted. Returns (fn's
-    result, {kernel name: launches}, solver stats, wall seconds)."""
+    builds, once per operator, dtype and layout), and beside them the sector
+    engine's applies (``sector_apply.applies``; torch ops, no kernel of its
+    own). Raises unless the ``engine`` ('xor' or 'sector') ran at least once
+    per matvec the solver counted, and, for the sector engine, unless the
+    XOR kernel did not run. Returns (fn's result, {name: count}, solver
+    stats, wall seconds)."""
     import torch
     from dynamite_tpu_torch import computations
+    from dynamite_tpu_torch.ops.sector_apply import sector_apply
     from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded,
                                                   xor_diagonal)
     torch.cuda.synchronize()
     xor_apply_sharded.launches = 0
     xor_diagonal.launches = 0
+    sector_apply.applies = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {'xor_apply': xor_apply_sharded.launches,
-                'xor_diagonal': xor_diagonal.launches}
+                'xor_diagonal': xor_diagonal.launches,
+                'sector_apply': sector_apply.applies}
     stats = dict(computations.last_solve_stats)
-    if not launches['xor_apply'] >= stats['matvecs'] > 0:
-        raise RuntimeError(f'{what}: {launches["xor_apply"]} kernel launches '
-                           f'for {stats["matvecs"]} matvecs')
+    ran = launches['xor_apply' if engine == 'xor' else 'sector_apply']
+    if not ran >= stats['matvecs'] > 0:
+        raise RuntimeError(f'{what}: {ran} {engine} applies for '
+                           f'{stats["matvecs"]} matvecs')
+    if engine == 'sector' and launches['xor_apply']:
+        raise RuntimeError(f'{what}: the XOR kernel ran on a sector path')
     return out, launches, stats, seconds
 
 
@@ -470,14 +747,19 @@ def phase_evolve():
 
 
 def child_eigsolve_double():
-    """Child process: eigsolve in float64 at L=16 against scipy's eigsh."""
+    """Child process, float64: eigsolve at L=16 on Full against scipy's
+    eigsh; the sector engine's float64 record at L=24; eigsolve of
+    localized(22) on SpinConserve(22, 11) to 1e-12 (the JAX bench's
+    double_L22). The last line holds the main-path calls' launches."""
     require_card_and_port()
     import numpy as np
     import scipy.sparse.linalg
+    import torch
     from dynamite_tpu_torch import config
     from dynamite_tpu_torch.computations import eigsolve
-    from dynamite_tpu_torch.models import localized
-    from dynamite_tpu_torch.subspaces import Full
+    from dynamite_tpu_torch.models import heisenberg, localized
+    from dynamite_tpu_torch.ops.cvec import norm
+    from dynamite_tpu_torch.subspaces import Full, SpinConserve
 
     config.precision = 'double'
     L = 16
@@ -502,15 +784,50 @@ def child_eigsolve_double():
     if not (rel <= 1e-10 and resid <= 1e-10):
         raise RuntimeError('float64 eigsolve misses its 1e-10 bounds')
 
+    H = heisenberg(24)
+    sub = SpinConserve(24, 12)
+    H.add_subspace(sub)
+    emit({'phase': 'sector_double',
+          'cases': [sector_record('heisenberg_sc24', H, sub, torch.float64,
+                                  plain_profiled=0)]})
+    del H
+    torch.cuda.empty_cache()
+
+    L = 22
+    H = localized(L)
+    sub = SpinConserve(L, L // 2)
+    H.add_subspace(sub)
+    t0 = time.perf_counter()
+    H.get_mat()
+    build_s = time.perf_counter() - t0
+    (evals, evecs), sc_launches, stats, eigsolve_s = counted(
+        lambda: eigsolve(H, nev=1, tol=1e-12, getvecs=True),
+        'eigsolve SpinConserve(22, 11) float64', engine='sector')
+    lam = float(evals[0])
+    v = evecs[0]
+    resid = float(norm(H.dot(v).data - lam * v.data)) / abs(lam)
+    emit({'phase': 'sector_eigsolve_double', 'L': L,
+          'dim': sub.get_dimension(), 'eval0': lam,
+          'jax_bench_eval0': EVAL0_SC22, 'relative_residual': resid,
+          'build_s': build_s, 'eigsolve_s': eigsolve_s,
+          'matvecs': stats['matvecs'], 'restarts': stats['restarts'],
+          'launches': sc_launches})
+    if not (resid <= 1e-10 and abs(lam - EVAL0_SC22) <= EVAL0_TOL):
+        raise RuntimeError(f'float64 SpinConserve(22, 11) eigsolve: '
+                           f'eigenvalue {lam}, residual {resid:.3e}')
+    emit({'phase': 'child_double', 'launches': add_counts(launches,
+                                                           sc_launches)})
+
 
 def phase_eigsolve():
-    """float64 at L=16 in a child process, then float32 at L=24 here.
-    Returns the kernels' launches of the two eigsolve calls."""
+    """The float64 child process, then float32 at L=24 on Full and on
+    XParity(Full(24), '+') here. Returns the kernels' launches of the
+    eigsolve calls, and the child's records by phase."""
     import numpy as np
     import torch
     from dynamite_tpu_torch.computations import eigsolve
     from dynamite_tpu_torch.models import localized
-    from dynamite_tpu_torch.subspaces import Full
+    from dynamite_tpu_torch.subspaces import Full, XParity
 
     child = subprocess.run([sys.executable, os.path.abspath(__file__),
                             CHILD_FLAG], capture_output=True, text=True,
@@ -522,7 +839,11 @@ def phase_eigsolve():
     if child.returncode != 0 or not lines:
         raise RuntimeError(f'the float64 eigsolve child failed '
                            f'(exit code {child.returncode})')
-    child_launches = json.loads(lines[-1])['launches']
+    child_recs = {}
+    for line in lines:
+        rec = json.loads(line)
+        child_recs[rec['phase']] = rec
+    child_launches = child_recs['child_double']['launches']
 
     L = 24
     H = localized(L)
@@ -545,7 +866,110 @@ def phase_eigsolve():
     # the recomputed residual adds float32 rounding of H v
     if not (np.isfinite(lam) and resid <= 1e-4):
         raise RuntimeError(f'float32 eigsolve residual {resid:.3e}')
-    return add_counts(child_launches, launches)
+    del H, evecs, v
+
+    # XParity over Full through the same kernel: the Z field leaves the
+    # X-parity sectors and is projected away
+    H = localized(L)
+    H.allow_projection = True
+    sub = XParity(Full(L=L), '+')
+    H.add_subspace(sub)
+    (evals, evecs), xp_launches, stats, eigsolve_s = counted(
+        lambda: eigsolve(H, nev=1, getvecs=True),
+        'eigsolve XParity(Full(24)) float32')
+    lam = float(evals[0])
+    v = evecs[0]
+    resid = float(torch.linalg.vector_norm(H.dot(v).data - lam * v.data))
+    resid /= abs(lam)
+    emit({'phase': 'eigsolve_xparity_full', 'L': L,
+          'dim': sub.get_dimension(), 'precision': 'single', 'eval0': lam,
+          'relative_residual': resid, 'eigsolve_s': eigsolve_s,
+          'matvecs': stats['matvecs'], 'restarts': stats['restarts'],
+          'launches': xp_launches['xor_apply'],
+          'diag_builds': xp_launches['xor_diagonal']})
+    if not (np.isfinite(lam) and resid <= 1e-4):
+        raise RuntimeError(f'float32 XParity(Full) eigsolve residual '
+                           f'{resid:.3e}')
+    return add_counts(child_launches, launches, xp_launches), child_recs
+
+
+def phase_sector_solves(L=24):
+    """evolve and eigsolve of localized(24) on SpinConserve(24, 12), and the
+    eigsolve on XParity(SpinConserve(24, 12), '+'), float32, through the
+    sector engine; then one more eigsolve under torch.profiler for where
+    its device time goes. The host build of each operator is timed apart
+    (``build_s``). Returns the records."""
+    import numpy as np
+    import torch
+    from dynamite_tpu_torch.computations import eigsolve, evolve
+    from dynamite_tpu_torch.models import localized
+    from dynamite_tpu_torch.states import State
+    from dynamite_tpu_torch.subspaces import SpinConserve, XParity
+
+    H = localized(L)
+    sub = SpinConserve(L, L // 2)
+    H.add_subspace(sub)
+    t0 = time.perf_counter()
+    H.get_mat()
+    build_s = time.perf_counter() - t0
+    psi = State(state='random', subspace=sub, seed=42)
+    r, ev_launches, ev_stats, evolve_s = counted(
+        lambda: evolve(H, psi, t=1.0), 'evolve SpinConserve(24, 12)',
+        engine='sector')
+    nrm = r.norm()
+    if not (np.isfinite(nrm) and abs(nrm - 1.0) <= 1e-3):
+        raise RuntimeError(f'evolve SpinConserve(24, 12): norm {nrm}')
+    (evals, evecs), eig_launches, eig_stats, eigsolve_s = counted(
+        lambda: eigsolve(H, nev=1, getvecs=True),
+        'eigsolve SpinConserve(24, 12)', engine='sector')
+    lam = float(evals[0])
+    v = evecs[0]
+    resid = float(torch.linalg.vector_norm(H.dot(v).data - lam * v.data))
+    resid /= abs(lam)
+    profile = profile_window(lambda: eigsolve(H, nev=1), n=1, top=8,
+                             warmup=False)
+    rec = {'phase': 'sector_solves', 'L': L, 'dim': sub.get_dimension(),
+           'precision': 'single', 'build_s': build_s,
+           'evolve_s': evolve_s, 'evolve_norm_s': ev_stats['norm_s'],
+           'evolve_solve_s': ev_stats['solve_s'], 'norm': nrm,
+           'evolve_matvecs': ev_stats['matvecs'],
+           'evolve_launches': ev_launches,
+           'eigsolve_s': eigsolve_s, 'eval0': lam,
+           'jax_bench_eval0': EVAL0_SC24, 'relative_residual': resid,
+           'eigsolve_matvecs': eig_stats['matvecs'],
+           'eigsolve_restarts': eig_stats['restarts'],
+           'eigsolve_launches': eig_launches,
+           'eigsolve_profile': profile}
+    if not (resid <= 1e-4 and abs(lam - EVAL0_SC24) <= EVAL0_TOL):
+        emit(rec)
+        raise RuntimeError(f'float32 SpinConserve(24, 12) eigsolve: '
+                           f'eigenvalue {lam}, residual {resid:.3e}')
+    del H, psi, r, evecs, v
+    torch.cuda.empty_cache()
+
+    H = localized(L)
+    H.allow_projection = True
+    sub = XParity(SpinConserve(L, L // 2), '+')
+    H.add_subspace(sub)
+    t0 = time.perf_counter()
+    H.get_mat()
+    rec['xparity_build_s'] = time.perf_counter() - t0
+    (evals, evecs), xp_launches, xp_stats, xp_s = counted(
+        lambda: eigsolve(H, nev=1, getvecs=True),
+        'eigsolve XParity(SpinConserve(24, 12))', engine='sector')
+    lam = float(evals[0])
+    v = evecs[0]
+    resid = float(torch.linalg.vector_norm(H.dot(v).data - lam * v.data))
+    resid /= abs(lam)
+    rec.update(xparity_dim=sub.get_dimension(), xparity_eigsolve_s=xp_s,
+               xparity_eval0=lam, xparity_relative_residual=resid,
+               xparity_matvecs=xp_stats['matvecs'],
+               xparity_launches=xp_launches)
+    emit(rec)
+    if not (np.isfinite(lam) and resid <= 1e-4):
+        raise RuntimeError(f'float32 XParity(SpinConserve(24, 12)) eigsolve '
+                           f'residual {resid:.3e}')
+    return rec
 
 
 def child_distributed(rank, world, port):
@@ -794,6 +1218,92 @@ def group_costs(L=24):
         del x, y, ys, a, b
 
 
+def sector_forms(L=24):
+    """``python3 chip_smoke.py --sector-forms``: the sector engine's column
+    channels in the engine's form (one ``baddbmm_`` per channel) against
+    the JAX package's batching on the same tables (the channels that share
+    a matrix and gather as one ``matmul`` over their concatenated rows,
+    then one add per channel), with a one-channel group in place
+    (``batched``) or through the same concatenation (``always_cat``).
+    heisenberg(L) and heisenberg(L + 2) on SpinConserve at half filling,
+    float32; prints the card's line, then per case and form the ms (CUDA
+    events, 20 reps after 3 warm-up) and the launches, busy ms and idle
+    share over 10 calls (torch.profiler), in two rounds."""
+    require_card_and_port()
+    import copy
+    import torch
+    from dynamite_tpu_torch import config
+    from dynamite_tpu_torch.models import heisenberg
+    from dynamite_tpu_torch.ops.sector_apply import sector_apply
+    from dynamite_tpu_torch.subspaces import SpinConserve
+
+    def batched(x, tables, rest, always_cat=False):
+        y = sector_apply(x, rest)  # the diagonal and the row channels
+        groups = {}
+        for ch in tables.on(x.dtype, x.device)[0]:
+            groups.setdefault((id(ch[2]), id(ch[4]), id(ch[5])),
+                              []).append(ch)
+        for chans in groups.values():
+            Mr, Mi = chans[0][4:]
+            srcs = []
+            for si, so, b, W, _mr, _mi in chans:
+                o, nb, na = tables.blocks[si]
+                s = x[:, o:o + nb * na].view(2, nb, na)
+                s = s if b is None else s.index_select(1, b)
+                srcs.append(s if W is None else s * W[:, None])
+            if len(chans) == 1 and not always_cat:
+                o, nb, na = tables.blocks[chans[0][1]]
+                ys = y[:, o:o + nb * na].view(2, nb, na)
+                ys.baddbmm_(srcs[0], Mr.t().expand(2, -1, -1))
+                if Mi is not None:
+                    ys[0].addmm_(srcs[0][1], Mi.t(), alpha=-1)
+                    ys[1].addmm_(srcs[0][0], Mi.t())
+                continue
+            src = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
+            out = torch.matmul(src, Mr.t())
+            if Mi is not None:
+                oi = torch.matmul(src, Mi.t())
+                out[0] -= oi[1]
+                out[1] += oi[0]
+            row0 = 0
+            for (_si, so, *_), s in zip(chans, srcs):
+                o, nb, na = tables.blocks[so]
+                y[:, o:o + nb * na].view(2, nb, na).add_(
+                    out[:, row0:row0 + s.shape[1]])
+                row0 += s.shape[1]
+        return y
+
+    config.precision = 'single'
+    config._initialize()
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    for l in (L, L + 2):
+        H, sub = heisenberg(l), SpinConserve(l, l // 2)
+        H.add_subspace(sub)
+        tables = H.get_mat().sector_tables
+        rest = copy.copy(tables)
+        rest.col_channels, rest._on = [], {}
+        x = random_planes(sub.get_dimension(), torch.float32, seed=13)
+        want = sector_apply(x, tables)
+        forms = {'engine': lambda: sector_apply(x, tables),
+                 'batched': lambda: batched(x, tables, rest),
+                 'always_cat': lambda: batched(x, tables, rest, True)}
+        for rnd in range(2):
+            for name, fn in forms.items():
+                rel = float((fn() - want).abs().max() / want.abs().max())
+                if not rel <= KERNEL_TOL['float32']:
+                    raise RuntimeError(f'{name} L={l}: disagrees ({rel:.3e})')
+                prof = profile_window(fn)
+                emit({'case': f'heisenberg_sc{l}', 'form': name,
+                      'round': rnd, 'ms': cuda_ms(fn),
+                      'launches': prof['launches_per_call'],
+                      'busy_ms': prof['busy_ms'],
+                      'idle_share': prof['idle_share'], 'rel_err': rel})
+        del H, tables, rest, x, want
+        torch.cuda.empty_cache()
+
+
 def main():
     require_card_and_port()
     import torch
@@ -805,10 +1315,15 @@ def main():
     card = phase_env()
     rows = phase_kernel()
     sharded_rows = phase_kernel_sharded(rows)
+    engines = phase_sector()
     # each main-path call counts its own launches (see counted); one
     # wrapper launches the kernel on both routes, and the phase tells the
     # layout: one block here, one block per rank in the distributed child
-    launches = add_counts(phase_evolve(), phase_eigsolve())
+    ev_launches = phase_evolve()
+    eig_launches, child_recs = phase_eigsolve()
+    launches = add_counts(ev_launches, eig_launches)
+    engines += child_recs['sector_double']['cases']
+    phase_sector_solves()
     dist_rec = phase_distributed()
     diag_builds = launches['xor_diagonal'] + dist_rec['diag_builds_all_ranks']
     if not diag_builds > 0:
@@ -822,6 +1337,9 @@ def main():
     shard_case = next(r for r in sharded_rows
                       if r['case'] == 'localized_full'
                       and r['dtype'] == 'float32' and r['P'] == 4)
+    # the sector engine: torch ops and cuBLAS products, no kernel of the
+    # port's own, so its records stand apart from the kernels' line
+    emit({'engines': engines})
     print(card, flush=True)
     emit({'kernels': [{
         'name': 'xor_apply',
@@ -878,5 +1396,7 @@ if __name__ == '__main__':
         child_distributed(*map(int, sys.argv[2:]))
     elif sys.argv[1:] == [GROUP_COSTS]:
         group_costs()
+    elif sys.argv[1:] == [SECTOR_FORMS]:
+        sector_forms()
     else:
         main()

@@ -1,14 +1,16 @@
 """
 dynamite_tpu_torch — the PyTorch/CUDA port of :mod:`dynamite_tpu`: symbolic
 Pauli-string Hamiltonians, Krylov time evolution and Lanczos eigensolving on
-the ``Full`` and ``Parity`` spaces, with the matrix-free XOR matvec as a
-hand-written CUDA kernel for Hopper (``csrc/xor_apply.cu``).
+the ``Full``, ``Parity`` and ``SpinConserve`` spaces and ``XParity`` over any
+of them. The matrix-free XOR matvec (Full, Parity) is a hand-written CUDA
+kernel for Hopper (``csrc/xor_apply.cu``); SpinConserve pairs run the sector
+engine, dense matmuls over the sector-major blocks (``ops/sector_apply.py``).
 
 The public API keeps the JAX package's module layout:
 
 * :mod:`dynamite_tpu_torch.operators` — Operator, sigmax/y/z, op_sum, ...
 * :mod:`dynamite_tpu_torch.states` — State
-* :mod:`dynamite_tpu_torch.subspaces` — Full, Parity
+* :mod:`dynamite_tpu_torch.subspaces` — Full, Parity, SpinConserve, XParity
 * :mod:`dynamite_tpu_torch.computations` — evolve, eigsolve
 * ``dynamite_tpu_torch.config`` — global defaults (L, subspace, precision,
   device)

@@ -20,6 +20,7 @@ from . import config
 from .utils import validate
 from .utils.bitwise import parity
 from .ops import msc as msc_tools
+from .ops.apply import _base
 from .parallel import multihost
 from .subspaces import Full, Parity
 from .states import State
@@ -271,18 +272,26 @@ class Operator:
     def conserves(self, left, right=None):
         """Whether the image of the right subspace under the operator lies
         inside the left subspace. Full and Parity pairs are decided
-        symbolically; other pairs need the device check of ROADMAP.md
-        queue 1, item 10."""
-        early = self._conserves_prep(left, right)
-        if early is None:
-            raise NotImplementedError(
-                'conservation checks beyond Full/Parity pairs are not ported '
-                'yet (ROADMAP.md queue 1, item 10)')
-        return early
+        symbolically; other pairs by a device reduction over the same term
+        sweep as the matvec (reference analog: the distributed shell
+        CheckConserves, bpetsc_template_2.c:990-1056)."""
+        msc, base_left, base_right, early = self._conserves_prep(left, right)
+        if early is not None:
+            return early
+        return self._device_conserves(msc, base_left, base_right)
+
+    @staticmethod
+    def _device_conserves(msc, base_left, base_right):
+        from .ops.reductions import build_check_conserves
+        config._initialize()
+        check = build_check_conserves(msc, base_left, base_right,
+                                      config.real_dtype, config.device)
+        return bool(check())
 
     def _conserves_prep(self, left, right):
-        """The symbolic conservation decision: True/False, or None when
-        the pair is not decidable symbolically."""
+        """Shared setup for the device and host conservation checks.
+        Returns (msc, base_left, base_right, early_result): early_result is
+        the symbolic decision, or None when the device check must run."""
         self.establish_L()
 
         if right is None:
@@ -297,20 +306,64 @@ class Operator:
         right.L = self.L
 
         self.reduce_msc()
+        if not left.product_state_basis:
+            msc, conserved = left.reduce_msc(self.msc, check_conserves=True)
+            if not conserved:
+                return None, None, None, False
+        else:
+            msc = self.msc
+
+        base_left, base_right = _base(left), _base(right)
 
         # Full left always contains every image state
-        if isinstance(left, Full):
-            return True
+        if isinstance(base_left, Full):
+            return msc, base_left, base_right, True
 
         # Parity pairs are decidable symbolically: a mask's image flips the
         # number parity by parity(mask), so every (non-cancelling) mask must
         # map the right sector exactly onto the left one
-        if isinstance(left, Parity) and isinstance(right, Parity):
-            masks = np.unique(self.msc['masks'])
-            want = left.space ^ right.space
-            return bool(np.all(parity(masks) == want))
+        if isinstance(base_left, Parity) and isinstance(base_right, Parity):
+            masks = np.unique(msc_tools.combine_terms(msc)['masks'])
+            want = base_left.space ^ base_right.space
+            return msc, base_left, base_right, bool(
+                np.all(parity(masks) == want))
 
-        return None
+        return msc, base_left, base_right, None
+
+    def _conserves_host(self, left, right=None):
+        """Host numpy version of :meth:`conserves` — the small-dimension
+        oracle for the device reduction."""
+        msc, base_left, base_right, early = self._conserves_prep(left, right)
+        if early is not None:
+            return early
+
+        masks, offsets = msc_tools.mask_groups(msc)
+        signs = msc['signs']
+        coeffs = msc['coeffs']
+        dim = base_right.get_dimension()
+
+        # per-column coefficient totals that cancel analytically can leave
+        # float roundoff (e.g. in symbolically-squared operators); treat
+        # them as zero relative to each group's coefficient scale
+        group_scale = np.add.reduceat(np.abs(coeffs), offsets[:-1])
+        tol = 1e-12 * group_scale
+
+        block = 1 << 14
+        for start in range(0, dim, block):
+            stop = min(start + block, dim)
+            cols = np.arange(start, stop, dtype=np.int64)
+            states = base_right.idx_to_state(cols)
+            sgn = 1 - 2 * parity(states[:, None] & signs[None, :])
+            totals = np.add.reduceat(sgn * coeffs[None, :], offsets[:-1],
+                                     axis=1)
+            for g, m in enumerate(masks):
+                active = np.abs(totals[:, g]) > tol[g]
+                if not np.any(active):
+                    continue
+                images = states[active] ^ m
+                if np.any(base_left.state_to_idx(images) == -1):
+                    return False
+        return True
 
     # -- text representations ------------------------------------------------------------
 
@@ -376,18 +429,42 @@ class Operator:
         config._initialize()
 
         self.reduce_msc()
-        self._check_consistent_msc(self.msc)
 
-        if not msc_tools.is_hermitian(self.msc):
+        if not subspaces[0].product_state_basis:
+            msc, xp_ok = subspaces[0].reduce_msc(self.msc,
+                                                 check_conserves=True)
+            if not self.allow_projection and not xp_ok:
+                raise ValueError(self._projection_message())
+        else:
+            msc = self.msc
+
+        self._check_consistent_msc(msc)
+
+        if not msc_tools.is_hermitian(msc):
             raise ValueError('Building non-Hermitian matrices currently not '
                              'supported.')
 
-        kernel = OperatorKernel(self.msc, subspaces[0], subspaces[1])
+        kernel = OperatorKernel(msc, subspaces[0], subspaces[1])
 
-        if not self.allow_projection and not self.conserves(*subspaces):
+        if not self.allow_projection \
+                and not self._conserves_for_build(subspaces, kernel):
             raise ValueError(self._projection_message())
 
         self._kernels[subspaces] = kernel
+
+    def _conserves_for_build(self, subspaces, kernel):
+        """The conservation gate of build_mat, in increasing order of cost:
+        symbolic shortcuts (Full/Parity), the sector engine's build
+        byproduct, then the standalone device reduction."""
+        msc, base_left, base_right, early = self._conserves_prep(*subspaces)
+        if early is not None:
+            return early
+        # the build byproduct is a row-wise (left-subspace) test, equivalent
+        # to the reference's column-wise CheckConserves only for square
+        # pairs; rectangular pairs must take the standalone reduction
+        if subspaces[0] == subspaces[1] and kernel.conserves_hint is not None:
+            return kernel.conserves_hint
+        return self._device_conserves(msc, base_left, base_right)
 
     @staticmethod
     def _check_consistent_msc(msc):
@@ -481,10 +558,10 @@ class Operator:
         if subspaces in self._norm_cache:
             return self._norm_cache[subspaces]
         self.establish_L()
-        self.reduce_msc()
+        msc = self._msc_on(subspaces[0])
 
         from .ops.reductions import build_infinity_norm
-        norm_fn = build_infinity_norm(self.msc, subspaces[0], subspaces[1],
+        norm_fn = build_infinity_norm(msc, subspaces[0], subspaces[1],
                                       config.real_dtype, config.device)
         result = norm_fn()
         self._norm_cache[subspaces] = result
@@ -496,15 +573,15 @@ class Operator:
         if subspaces is None:
             subspaces = (self.left_subspace, self.right_subspace)
         self.establish_L()
-        self.reduce_msc()
-        msc = self.msc
+        msc = self._msc_on(subspaces[0])
 
         masks, offsets = msc_tools.mask_groups(msc)
         signs = msc['signs']
         coeffs = msc['coeffs']
 
-        base_left, base_right = subspaces
-        dim = base_left.get_dimension()
+        left, right = subspaces
+        base_left, base_right = _base(left), _base(right)
+        dim = left.get_dimension()
 
         best = 0.0
         block = 1 << 16
@@ -547,6 +624,14 @@ class Operator:
             self.msc = msc_tools.combine_terms(self.msc)
             self.is_reduced = True
 
+    def _msc_on(self, subspace):
+        """The reduced MSC as it acts on ``subspace``: rewritten through
+        ``XParity.reduce_msc`` where the subspace is an XParity."""
+        self.reduce_msc()
+        if subspace.product_state_basis:
+            return self.msc
+        return subspace.reduce_msc(self.msc)
+
     @property
     def is_reduced(self):
         return self._is_reduced
@@ -571,10 +656,8 @@ class Operator:
         self.establish_L()
         if subspaces is None:
             subspaces = (self.left_subspace, self.right_subspace)
-        self.reduce_msc()
-
         return msc_tools.msc_to_matrix(
-            self.msc,
+            self._msc_on(subspaces[0]),
             (subspaces[0].get_dimension(), subspaces[1].get_dimension()),
             subspaces[0].idx_to_state,
             subspaces[1].state_to_idx,

@@ -1,21 +1,28 @@
 """
-The matrix-free Pauli-string matvec engine, XOR path.
+The matrix-free Pauli-string matvec engine.
 
 An operator's MSC terms, grouped by mask m, define
 
     y[row] += f_m(bra) * x[col(bra)],   bra = i2s_left(row) ^ m
     f_m(bra) = sum_{terms t with mask m} coeff_t * (-1)**parity(bra & sign_t)
+    col(bra) = s2i_right(bra)   (contribution dropped where invalid)
 
-When both subspaces are Full (or both Parity), col(bra) == row ^ m' for a
-reduced mask m', a pure XOR permutation: the case this slice of the port
-carries. It runs in the hand-written CUDA kernel on CUDA tensors and in its
-plain PyTorch version on CPU tensors (see :mod:`.xor_apply`). Other subspace
-pairs raise NotImplementedError (ROADMAP.md queue 1).
+:class:`OperatorKernel` picks the engine for one (left, right) pair:
+
+* both Full, both Parity, or XParity over either (its MSC already rewritten
+  by ``XParity.reduce_msc``): col(bra) == row ^ m' for a reduced mask m', a
+  pure XOR permutation, which runs in the hand-written CUDA kernel on CUDA
+  tensors and in its plain PyTorch version on CPU tensors (see
+  :mod:`.xor_apply`);
+* square SpinConserve pairs, plain or XParity-wrapped: the sector engine
+  (:mod:`.sector_apply`), dense matmuls over the sector-major blocks;
+* any other pair raises NotImplementedError (ROADMAP.md queue 1, item 10).
 
 Once a process group is up (:func:`..parallel.multihost.initialize`), each
 rank holds a (2, local_dim) block of rows (:mod:`..parallel.mesh`) and the
-apply exchanges blocks pairwise with the ranks its masks reach, then runs
-the kernel's sharded route once (:meth:`OperatorKernel.apply`).
+XOR apply exchanges blocks pairwise with the ranks its masks reach, then runs
+the kernel's sharded route once (:meth:`OperatorKernel.apply`). The sector
+engine and XParity pairs do not run distributed yet (item 12).
 """
 
 import numpy as np
@@ -25,12 +32,21 @@ import torch.distributed as dist
 from ..parallel import mesh, multihost
 from ..utils.bitwise import parity as parity_np
 from . import msc as msc_mod
+from .index_maps import device_map
+from .sector_apply import build_sector_apply, sector_apply, sector_supported
 from .xor_apply import XorTables, xor_apply_sharded
+
+
+def _base(subspace):
+    """The parent of an XParity subspace, else the subspace itself."""
+    from .. import subspaces as sp
+    return subspace.parent if isinstance(subspace, sp.XParity) else subspace
 
 
 def _is_xor_pair(left, right):
     """Whether col(bra) reduces to a pure XOR permutation of row indices."""
     from .. import subspaces as sp
+    left, right = _base(left), _base(right)
     if isinstance(left, sp.Full) and isinstance(right, sp.Full):
         return True
     if isinstance(left, sp.Parity) and isinstance(right, sp.Parity):
@@ -39,20 +55,22 @@ def _is_xor_pair(left, right):
 
 
 class _Plan:
-    """Host-side compilation plan for one (msc, left, right) triple."""
+    """Host-side compilation plan for one (msc, left, right) triple. Groups
+    are (mask, perm_mask, signs, coeffs); perm_mask is the XOR permutation
+    mask of an XOR pair, None otherwise."""
 
     def __init__(self, msc, left, right):
         from .. import subspaces as sp
-
-        if not _is_xor_pair(left, right):
-            raise NotImplementedError(
-                f'the ({left!r}, {right!r}) pair is not an XOR pair; general '
-                'subspace pairs are ROADMAP.md queue 1, item 10')
 
         msc = msc_mod.combine_terms(msc)
         self.L = left.L
         self.dim_left = left.get_dimension()
         self.dim_right = right.get_dimension()
+        self.left_map = device_map(left)
+        self.right_map = device_map(right)
+        self.xor_mode = _is_xor_pair(left, right)
+
+        lbase, rbase = _base(left), _base(right)
 
         masks, offsets = msc_mod.mask_groups(msc)
         groups = []
@@ -62,19 +80,27 @@ class _Plan:
             coeffs = msc['coeffs'][sl].astype(np.complex128)
             m = int(m)
 
-            if isinstance(left, sp.Parity):
-                # validity of s2i is uniform over the group:
-                # parity(bra) = left.space ^ parity(m) must equal right.space
-                if (left.space ^ int(parity_np(np.int64(m)))) != right.space:
-                    continue  # projected away entirely
-                perm_mask = m >> 1
+            if self.xor_mode:
+                if isinstance(lbase, sp.Parity):
+                    # validity of s2i is uniform over the group:
+                    # parity(bra) = left.space ^ parity(m) must equal
+                    # right.space
+                    if (lbase.space ^ int(parity_np(np.int64(m)))) \
+                            != rbase.space:
+                        continue  # projected away entirely
+                    perm_mask = m >> 1
+                else:
+                    perm_mask = m
             else:
-                perm_mask = m
+                perm_mask = None
 
             groups.append((m, perm_mask, signs, coeffs))
 
         self.groups = groups
         self.nterms = sum(len(g[2]) for g in groups)
+
+    def row_states(self, rows):
+        return self.left_map.i2s(rows)
 
 
 def exchange(x_local, tables, bufs):
@@ -109,30 +135,77 @@ exchange.bytes = 0
 
 
 class OperatorKernel:
-    """A matrix-free matvec y = A @ x for one Full/Parity subspace pair.
+    """A matrix-free matvec y = A @ x for one subspace pair.
 
     ``apply(x)`` takes the (2, dim_right) stacked-real tensor and returns the
     (2, dim_left) result, on x's device and in x's dtype. With a process
     group up, x and the result are this rank's (2, local_dim) rows.
+
+    The engine's tables are ``tables`` (XOR pairs: :class:`XorTables`) or
+    ``sector_plan`` and ``sector_tables`` (SpinConserve pairs);
+    ``conserves_hint`` is the sector engine's conservation flag, a byproduct
+    of its build (None for the XOR engine, whose pairs are decided
+    symbolically).
     """
 
     def __init__(self, msc, left, right):
+        from .. import subspaces as sp
+
         self.plan = _Plan(msc, left, right)
         self.left = left
         self.right = right
-        self.tables = XorTables(self.plan, left)
+        self.tables = None
+        self.sector_plan = None
+        self.sector_tables = None
+        self.conserves_hint = None
         self._krylov_ops = {}
         self._recv_bufs = {}
 
+        distributed = multihost.world_size() > 1
+        xparity = isinstance(left, sp.XParity) or isinstance(right, sp.XParity)
+        if self.plan.xor_mode:
+            if distributed and xparity:
+                raise NotImplementedError(
+                    'XParity operators over ranks are not ported yet '
+                    '(ROADMAP.md queue 1, item 12)')
+            self.tables = XorTables(self.plan, left)
+            return
+        if not self.plan.groups:
+            return  # every term projected away, or none to begin with
+        if sector_supported(self.plan, left, right):
+            if distributed:
+                raise NotImplementedError(
+                    'the sector engine over ranks (ops/sector_shard.py) is '
+                    'not ported yet (ROADMAP.md queue 1, item 12)')
+            self.sector_tables, self.sector_plan = build_sector_apply(
+                self.plan, left, right)
+            if self.sector_tables is not None:
+                self.conserves_hint = self.sector_plan.conserved
+                return
+        raise NotImplementedError(
+            f'the ({left!r}, {right!r}) pair needs the general or ELL engine '
+            '(rectangular SpinConserve pairs, operators over the sector '
+            'engine\'s group limit or table budget, Explicit/Auto), which is '
+            'not ported yet (ROADMAP.md queue 1, item 10)')
+
     def apply(self, x):
-        """This rank's rows of y (every row without a process group):
-        exchange blocks with the ranks ``me ^ m_hi``, then one launch of the
-        kernel. Without a group, or on one rank, the layout is one block and
+        """This rank's rows of y (every row without a process group).
+
+        The sector engine runs on one device. The XOR engine exchanges
+        blocks with the ranks ``me ^ m_hi``, then launches the kernel once.
+        Without a group, or on one rank, the layout is one block and
         nothing is exchanged. The receive buffers, ``len(hi_list) - 1``
         blocks, are kept per dtype and device between calls, so the memory
         grows with the number of distinct high masks."""
         x = x.contiguous()
         dim = self.plan.dim_right
+        if not self.plan.xor_mode:
+            if x.shape != (2, dim):
+                raise ValueError(f'expected (2, {dim}) planes, got '
+                                 f'{tuple(x.shape)}')
+            if self.sector_tables is None:
+                return x.new_zeros((2, self.plan.dim_left))
+            return sector_apply(x, self.sector_tables)
         n = mesh.local_dim(dim)
         if x.shape != (2, n):
             raise ValueError(f'expected this rank\'s (2, {n}) rows, got '

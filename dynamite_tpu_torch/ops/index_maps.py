@@ -1,6 +1,7 @@
 """
 Device-side subspace index maps over int64 tensors (the JAX package's
-``ops/index_maps.py``, Full and Parity only).
+``ops/index_maps.py``: Full, Parity and SpinConserve; XParity resolves to its
+parent's map).
 
 Each map is a small host object with
 
@@ -10,7 +11,12 @@ Each map is a small host object with
 built from the host-side Subspace objects via :func:`device_map`.
 """
 
+import numpy as np
 import torch
+
+_M1 = 0x5555555555555555
+_M2 = 0x3333333333333333
+_M4 = 0x0F0F0F0F0F0F0F0F
 
 
 def parity(x):
@@ -19,6 +25,18 @@ def parity(x):
     for shift in (32, 16, 8, 4, 2, 1):
         x = x ^ (x >> shift)
     return x & 1
+
+
+def popcount(x):
+    """Set bits of each nonnegative int64 element: the SWAR byte counts,
+    summed by shifts (no multiply, so nothing overflows)."""
+    x = x - ((x >> 1) & _M1)
+    x = (x & _M2) + ((x >> 2) & _M2)
+    x = (x + (x >> 4)) & _M4
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    x = x + (x >> 32)
+    return x & 0x7F
 
 
 class FullMap:
@@ -45,14 +63,105 @@ class ParityMap:
         return state >> 1, parity(state) == self.space
 
 
+class SpinConserveMap:
+    """Sector-major (un)ranking of fixed-popcount bitstrings (see
+    ops/sectors.py): index = sector offset + rank(high rest) * na +
+    rank(low half). The two half-rank loops run over the bits, with the
+    binomial table and the layout's per-sector arrays as small int64
+    tensors, kept per device."""
+
+    def __init__(self, L, k, nchoosek):
+        from .sectors import layout
+        self.L = L
+        self.k = k
+        self.nchoosek = np.asarray(nchoosek)  # [kk, n] = C(n, kk)
+        self.lay = layout(L, k)
+        self._tables = {}
+
+    def _on(self, device):
+        """The lookup tables as int64 tensors on ``device`` (cached)."""
+        if device not in self._tables:
+            lay = self.lay
+            self._tables[device] = {
+                name: torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                      device=device)
+                for name, a in (('flat', self.nchoosek.reshape(-1)),
+                                ('off', lay.off), ('na', lay.na),
+                                ('kr', lay.kr), ('ka', lay.ka),
+                                ('t', lay.t), ('off_tk', lay.off_tk),
+                                ('na_tk', lay.na_tk))}
+        return self._tables[device]
+
+    def _rank(self, x, nbits, flat):
+        """Value-order combinatorial rank over one half."""
+        ld = self.nchoosek.shape[1]
+        idx = torch.zeros_like(x)
+        kk = torch.zeros_like(x)
+        for n in range(nbits):
+            bit = (x >> n) & 1
+            kk = kk + bit
+            idx = idx + bit * flat[kk.clamp(0, self.k) * ld + n]
+        return idx
+
+    def _unrank(self, idx, k, nbits, flat):
+        """Inverse of :meth:`_rank`; ``k`` is a per-element popcount."""
+        ld = self.nchoosek.shape[1]
+        state = torch.zeros_like(idx)
+        for n in range(nbits, 0, -1):
+            state = state << 1
+            current = torch.where(k > n - 1, 0,
+                                  flat[k.clamp(0, self.k) * ld + (n - 1)])
+            take = (idx >= current).to(idx.dtype)
+            idx = idx - take * current
+            k = k - take
+            state = state | take
+        return state
+
+    def i2s(self, idx):
+        tb = self._on(idx.device)
+        lay = self.lay
+        sec = torch.searchsorted(tb['off'], idx, right=True) - 1
+        rem = idx - tb['off'][sec]
+        na = tb['na'][sec]
+        rb = rem // na
+        ra = rem - rb * na
+        hr = self._unrank(rb, tb['kr'][sec], lay.Lr, tb['flat'])
+        sa = self._unrank(ra, tb['ka'][sec], lay.La, tb['flat'])
+        return (tb['t'][sec] << (self.L - 1)) | (hr << lay.La) | sa
+
+    def s2i(self, state):
+        tb = self._on(state.device)
+        lay = self.lay
+        t = (state >> (self.L - 1)) & 1
+        hr = (state >> lay.La) & ((1 << lay.Lr) - 1)
+        sa = state & ((1 << lay.La) - 1)
+        kr = popcount(hr)
+        valid = (t + kr + popcount(sa)) == self.k
+        # kr <= Lr, so the slot stays inside the (t, kr) tables even where
+        # the state is invalid (t = 1 with any kr)
+        slot = t * (lay.Lr + 1) + kr
+        rb = self._rank(hr, lay.Lr, tb['flat'])
+        ra = self._rank(sa, lay.La, tb['flat'])
+        return tb['off_tk'][slot] + rb * tb['na_tk'][slot] + ra, valid
+
+
 def device_map(subspace):
-    """Build the device index map for a host Subspace object."""
+    """Build the device index map for a host Subspace object.
+
+    XParity is handled at the operator level (its MSC gets rewritten and its
+    index maps coincide with the parent's on representatives), so here it
+    resolves to its parent's map.
+    """
     from .. import subspaces as sp
 
+    if isinstance(subspace, sp.XParity):
+        return device_map(subspace.parent)
     if isinstance(subspace, sp.Full):
         return FullMap(subspace.L)
     if isinstance(subspace, sp.Parity):
         return ParityMap(subspace.L, subspace.space)
+    if isinstance(subspace, sp.SpinConserve):
+        return SpinConserveMap(subspace.L, subspace.k, subspace.nchoosek)
     raise NotImplementedError(
         f'no device map for subspace type {type(subspace).__name__} '
-        '(ROADMAP.md queue 1)')
+        '(ROADMAP.md queue 1, item 10)')

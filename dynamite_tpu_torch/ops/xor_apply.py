@@ -1,7 +1,8 @@
 """
-The XOR-mode Pauli-string matvec for Full/Parity subspace pairs: the host
-plan, the wrappers of the hand-written Hopper kernels (``csrc/xor_apply.cu``)
-and their plain PyTorch versions.
+The XOR-mode Pauli-string matvec for Full/Parity subspace pairs, and XParity
+over either (its MSC rewritten by ``XParity.reduce_msc``, its rows the
+parent's first half): the host plan, the wrappers of the hand-written Hopper
+kernels (``csrc/xor_apply.cu``) and their plain PyTorch versions.
 
 This replaces the JAX package's Pallas kernel
 (``dynamite_tpu/ops/pallas_apply.py::_build_call``) on both of its routes:
@@ -78,19 +79,22 @@ def _effective_sign_mask(s, m, left, right):
         -> s_eff = (s>>1) ^ (all-ones if s&1), folding the parity bit's
            contribution parity(k) into the mask; const collects the m and
            space terms.
+    XParity over either reduces as its parent does: its (rewritten) masks
+    keep spin L-1 clear, so its rows are the parent's first half.
     Returns (s_eff, sign) with sign = +-1.
     """
     from .. import subspaces as sp
-    if isinstance(left, sp.Full):
+    lbase = left.parent if isinstance(left, sp.XParity) else left
+    if isinstance(lbase, sp.Full):
         s_eff = int(s)
         const = int(parity_np(np.int64(s & m)))
         return s_eff, 1 - 2 * const
-    if isinstance(left, sp.Parity):
-        nbits = left.L - 1
+    if isinstance(lbase, sp.Parity):
+        nbits = lbase.L - 1
         ones = (1 << nbits) - 1
         s_eff = (int(s) >> 1) ^ (ones if (s & 1) else 0)
         const = int(parity_np(np.int64((s >> 1) & (m >> 1))))
-        const ^= int(s & 1) & (left.space ^ (int(m) & 1))
+        const ^= int(s & 1) & (lbase.space ^ (int(m) & 1))
         return s_eff, 1 - 2 * const
     raise TypeError('effective sign mask only defined for Full/Parity')
 

@@ -26,12 +26,21 @@ from .parallel import mesh, multihost
 # the subspace metadata of a saved state names its classes under the JAX
 # package's module path, so a file saved by either package loads in the other
 _SAVED_MODULE = 'dynamite_tpu.subspaces'
-_LOADABLE = {'Full': subspaces.Full, 'Parity': subspaces.Parity}
+_LOADABLE = {'Full': subspaces.Full, 'Parity': subspaces.Parity,
+             'SpinConserve': subspaces.SpinConserve,
+             'XParity': subspaces.XParity}
+# numpy's own globals in a pickled array (SpinConserve's binomial table),
+# under numpy 2's module path and numpy 1's
+_NUMPY_GLOBALS = {('numpy.core.multiarray', '_reconstruct'),
+                  ('numpy._core.multiarray', '_reconstruct'),
+                  ('numpy', 'ndarray'), ('numpy', 'dtype'),
+                  # protocol 2 spells bytes as a latin-1 string
+                  ('_codecs', 'encode')}
 
 
 class _SubspaceUnpickler(pickle.Unpickler):
-    """Unpickles saved subspace metadata into this package's classes, and
-    nothing else."""
+    """Unpickles saved subspace metadata into this package's classes (and
+    the numpy arrays they hold), and nothing else."""
 
     def find_class(self, module, name):
         if module in (_SAVED_MODULE, subspaces.__name__):
@@ -39,17 +48,20 @@ class _SubspaceUnpickler(pickle.Unpickler):
                 return _LOADABLE[name]
             raise NotImplementedError(
                 f'loading a state on a {name} subspace is not ported yet '
-                '(ROADMAP.md queue 1)')
+                '(ROADMAP.md queue 1, item 10)')
+        if (module, name) in _NUMPY_GLOBALS:
+            return super().find_class(module, name)
         raise pickle.UnpicklingError(
             f'unexpected global {module}.{name} in state metadata')
 
 
 def _dump_subspace(subspace, f):
     # protocol 2 spells a class as the text line "c<module>\n<name>\n", so
-    # the module path can be renamed without touching anything else
+    # the module path can be renamed without touching anything else (an
+    # XParity names its own class and its parent's)
     data = pickle.dumps(subspace, protocol=2)
     ours = b'c' + subspaces.__name__.encode() + b'\n'
-    if data.count(ours) != 1:
+    if not data.count(ours):
         raise RuntimeError('unexpected pickle of the subspace metadata')
     f.write(data.replace(ours, b'c' + _SAVED_MODULE.encode() + b'\n'))
 

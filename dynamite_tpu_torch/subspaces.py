@@ -2,20 +2,23 @@
 Symmetry-sector subspaces: bijections between dense vector indices and the
 product states (bitstrings) they represent.
 
-This slice of the port carries ``Full`` and ``Parity``. Host-side maps here
-are vectorized numpy; the torch versions that the device code uses live in
-:mod:`dynamite_tpu_torch.ops.index_maps`.
+The port carries ``Full``, ``Parity``, ``SpinConserve`` and ``XParity`` over
+any of them; ``Explicit`` and ``Auto`` raise until they are ported. Host-side
+maps here are vectorized numpy; the torch versions that the device code uses
+live in :mod:`dynamite_tpu_torch.ops.index_maps`.
 
 Reference semantics: src/dynamite/subspaces.py and
 src/dynamite/_backend/bsubspace_impl.h (index-map formulas).
 """
 
+import math
 from copy import deepcopy
 from zlib import crc32
 
 import numpy as np
 
 from . import config
+from .ops import msc as msc_mod
 from .utils import validate
 from .utils.bitwise import parity
 
@@ -214,6 +217,225 @@ class Parity(_ProductStateSubspace):
         return np.where(parity(state) == self.space, idx, -1)
 
 
+class SpinConserve(_ProductStateSubspace):
+    """States with exactly ``k`` down (1) spins: dimension C(L, k).
+
+    The basis is ordered *sector-major*, as in the JAX package (see
+    :mod:`dynamite_tpu_torch.ops.sectors`): by the top spin, then by the
+    Hamming weight of the high half, then by the combinatorial rank of each
+    half. Every symmetry sector is then a contiguous 2-D block, and the
+    matvec becomes dense matmuls (ops/sector_apply.py).
+    """
+
+    def __init__(self, L, k, spinflip=None):
+        super().__init__(L=L)
+        if spinflip is not None:
+            raise DeprecationWarning('spinflip argument has been deprecated; '
+                                     'use the XParity class instead.')
+        if not 0 <= k <= self.L:
+            raise ValueError('k must be between 0 and L')
+        self._k = int(k)
+        # nchoosek[kk, n] = C(n, kk), zero when kk > n
+        self._nchoosek = np.array(
+            [[math.comb(n, kk) for n in range(L + 1)]
+             for kk in range(k + 1)],
+            dtype=np.int64)
+
+    @property
+    def k(self):
+        """The number of down ('1' in binary representation) spins."""
+        return self._k
+
+    @property
+    def nchoosek(self):
+        return self._nchoosek
+
+    @property
+    def sector_layout(self):
+        """The static sector-major layout (ops/sectors.SectorLayout)."""
+        from .ops import sectors
+        return sectors.layout(self.L, self.k)
+
+    def __eq__(self, other):
+        # two SpinConserve spaces are equal iff L and k agree; skips the
+        # checksum over all C(L, k) basis states
+        if isinstance(other, SpinConserve):
+            return other.L == self.L and other.k == self.k
+        return super().__eq__(other)
+
+    def __hash__(self):
+        return hash(('SpinConserve', self.L, self.k))
+
+    def __repr__(self):
+        return f'SpinConserve(L={self.L}, k={self.k})'
+
+    def get_dimension(self):
+        return int(self._nchoosek[self.k, self.L])
+
+    def _state_to_idx(self, state):
+        from .ops import sectors
+        return sectors.state_to_idx(self.sector_layout, state)
+
+    def _idx_to_state(self, idx):
+        from .ops import sectors
+        return sectors.idx_to_state(self.sector_layout, idx)
+
+
+class XParity(Subspace):
+    r"""Parity in the X basis, layered on top of a parent subspace.
+
+    Basis states are :math:`|c> \pm |\bar c>` (c and its global spin flip),
+    represented by whichever of the two bitstrings has spin L-1 in state 0.
+    Halves the parent dimension; not a product-state basis.
+    (reference: subspaces.py:532-795)
+    """
+
+    _product_state_basis = False
+
+    def __init__(self, parent=None, sector='+', L=None):
+        if parent is None:
+            parent = Full()
+        self._parent = parent
+        if L is not None:
+            self.parent.L = L
+
+        self._validate_parent(self.parent)
+
+        if sector in ('+', +1):
+            self._sector = +1
+        elif sector in ('-', -1):
+            self._sector = -1
+        else:
+            raise ValueError('invalid value for sector')
+
+    @classmethod
+    def _validate_parent(cls, parent):
+        if not parent.product_state_basis:
+            raise ValueError('parent must be a product state subspace')
+        if isinstance(parent, Full):
+            return
+        if parent.L is None:
+            raise ValueError('L must be set for the parent subspace')
+        if isinstance(parent, Parity):
+            if parent.L % 2 == 0:
+                return
+            raise ValueError('Parity is only compatible with XParity when L '
+                             'is even')
+        if isinstance(parent, SpinConserve):
+            if parent.L == 2 * parent.k:
+                return
+            raise ValueError('SpinConserve is only compatible with XParity '
+                             'when k=L/2')
+        raise NotImplementedError(
+            f'XParity over {type(parent).__name__} is not ported yet '
+            '(ROADMAP.md queue 1, item 10)')
+
+    @property
+    def parent(self):
+        return self._parent
+
+    @property
+    def sector(self):
+        return self._sector
+
+    @property
+    def _L(self):
+        return self.parent.L
+
+    @_L.setter
+    def _L(self, value):
+        self.parent.L = value
+
+    def __hash__(self):
+        return hash(('XParity', self.sector, self.parent))
+
+    def __repr__(self):
+        return f'XParity({self.parent!r}, sector={self.sector:+d})'
+
+    def get_dimension(self):
+        return self.parent.get_dimension() // 2
+
+    def _idx_to_state(self, idx):
+        # representatives are exactly the first dim/2 parent states
+        return self.parent.idx_to_state(idx)
+
+    def _state_to_idx(self, state):
+        if np.count_nonzero(state >> (self.L - 1)):
+            raise ValueError('invalid state')
+        return self.parent.state_to_idx(state)
+
+    def reduce_msc(self, msc, check_conserves=False):
+        """Rewrite an MSC operator into the equivalent form on this subspace:
+        drop terms that do not commute with the global X-string, fold masks
+        that touch spin L-1 onto their complements (with a sector sign)."""
+        msc = msc.copy()
+
+        commutes = parity(msc['signs']) == 0
+        conserved = bool(np.all(commutes))
+        msc = msc[commutes]
+
+        fold = (msc['masks'] >> (self.L - 1)) != 0
+        msc['masks'][fold] ^= (np.int64(1) << np.int64(self.L)) - 1
+        if self.sector == -1:
+            msc['coeffs'][fold] *= -1
+
+        msc = msc_mod.combine_terms(msc)
+
+        if check_conserves:
+            return msc, conserved
+        return msc
+
+    def convert_state(self, state):
+        """Convert a state on this subspace to its parent, or vice versa,
+        on the state's device: the complement of each representative is
+        found with the parent's device index map (ops/index_maps.py), and
+        the amplitudes move with one ``index_select`` (to the parent) or
+        one ``index_add_`` (to this subspace)."""
+        import torch
+        from .states import State
+        from .ops.index_maps import device_map
+        from .parallel import multihost
+
+        state.assert_initialized()
+        if multihost.world_size() > 1:
+            raise NotImplementedError(
+                'XParity.convert_state of a state spread over ranks is not '
+                'ported yet (ROADMAP.md queue 1, item 12)')
+        n_in = len(state)
+        flip = (1 << self.L) - 1
+        pmap = device_map(self.parent)
+        data = state.data
+        invsq2 = 1.0 / np.sqrt(2)
+
+        def complement_idx(first, stop):
+            rows = torch.arange(first, stop, dtype=torch.int64,
+                                device=data.device)
+            idx, _ = pmap.s2i(flip ^ pmap.i2s(rows))
+            return idx
+
+        if state.subspace is self:
+            # to the parent: amplitude a on representative c, sector * a on
+            # its complement; the second half of the parent's rows are the
+            # complements of the first
+            pdim = self.parent.get_dimension()
+            comp = data.index_select(1, complement_idx(n_in, pdim))
+            vec = torch.cat([data, self.sector * comp], dim=1)
+            out = State(subspace=self.parent)
+        elif state.subspace is self.parent:
+            dim_out = n_in // 2
+            to_idx = complement_idx(dim_out, n_in)
+            vec = data[:, :dim_out].clone()
+            vec.index_add_(1, to_idx, data[:, dim_out:],
+                           alpha=self.sector)
+            out = State(subspace=self)
+        else:
+            raise ValueError('subspace of input state must be this XParity '
+                             'subspace or its parent')
+        out.data = vec * invsq2
+        out.set_initialized()
+        return out
+
+
 def _not_ported(name, item):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
@@ -224,7 +446,5 @@ def _not_ported(name, item):
                                                f'queue 1, item {item}.'})
 
 
-SpinConserve = _not_ported('SpinConserve', 7)
-XParity = _not_ported('XParity', 7)
 Explicit = _not_ported('Explicit', 10)
 Auto = _not_ported('Auto', 10)

@@ -1,8 +1,9 @@
 """
 The port on a CUDA device: the hand-written XOR kernel against its plain
 PyTorch version on both routes (one device, and P virtual shards of one
-vector), Operator.dot / evolve / eigsolve through the kernel, and the
-distributed path on NCCL when the machine has two GPUs or more.
+vector) and on XParity spaces, the sector engine against its plain version,
+Operator.dot / evolve / eigsolve through both, and the distributed path on
+NCCL when the machine has two GPUs or more.
 
 Every test here needs a card (marker ``cuda``) and skips without one. The
 file imports no JAX, so it runs on a machine without it, from the root of
@@ -11,8 +12,8 @@ JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: kernel against plain version max|dy|/max|y| <= 1e-5 (float32)
-and 1e-12 (float64), as in chip_smoke.py; solvers as in
+Tolerances: kernel or engine against plain version max|dy|/max|y| <= 1e-5
+(float32) and 1e-12 (float64), as in chip_smoke.py; solvers as in
 test_torch_solvers.py.
 """
 
@@ -263,6 +264,85 @@ def test_diagonal_builds_once_per_layout(card):
         d = xor_diagonal(st, n, dtype, card)
         want = xor_diagonal_reference(st, n, dtype, card)
         assert float((d - want).abs().max() / want.abs().max()) <= tol
+
+
+@pytest.mark.parametrize('sector', ['+', '-'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('parent', ['full', 'even'])
+def test_xparity_kernel_vs_plain_on_card(card, parent, dtype, sector):
+    """XParity over Full(13) and Parity('even', L=14): the rewritten masks
+    that touched spin L-1 fold onto m ^ (2**L - 1), reaching nearly every
+    bit, so the far groups and the tile skip run."""
+    from dynamite_tpu_torch.models import localized
+    base = (subspaces.Full(L=13) if parent == 'full'
+            else subspaces.Parity('even', L=14))
+    H = localized(base.L)
+    H.allow_projection = True
+    H.add_subspace(subspaces.XParity(base, sector))
+    tables = H.get_mat().tables
+    assert tables.dim == 1 << 12
+    x = torch.from_numpy(_planes(tables.dim, seed=3)).to(card, dtype)
+    before = xor_apply_sharded.launches
+    y = xor_apply(x, tables)
+    torch.cuda.synchronize()
+    assert xor_apply_sharded.launches == before + 1
+    want = xor_apply_reference(x, tables)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((y - want).abs().max() / want.abs().max()) <= tol
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('space', ['sc', 'sc_odd', 'xparity'])
+@pytest.mark.parametrize('model', ['heisenberg', 'long_range'])
+def test_sector_engine_vs_plain_on_card(card, model, space, dtype):
+    """The sector engine on the card against its plain version (the
+    on-the-fly row sweep) and the numpy oracle: SpinConserve(12, 6),
+    SpinConserve(13, 5) and XParity(SpinConserve(12, 6), '-');
+    long_range has complex matrices."""
+    from dynamite_tpu_torch.ops.sector_apply import (sector_apply,
+                                                     sector_apply_reference)
+    sub = {'sc': lambda: subspaces.SpinConserve(12, 6),
+           'sc_odd': lambda: subspaces.SpinConserve(13, 5),
+           'xparity': lambda: subspaces.XParity(
+               subspaces.SpinConserve(12, 6), '-')}[space]()
+    H = getattr(models, model)(sub.L)
+    H.allow_projection = True
+    H.add_subspace(sub)
+    kernel = H.get_mat()
+    assert kernel.sector_plan is not None
+    x = torch.from_numpy(_planes(sub.get_dimension(), seed=4)).to(card, dtype)
+    before = sector_apply.applies
+    y = kernel.apply(x)
+    assert sector_apply.applies == before + 1
+    want = sector_apply_reference(x, kernel.plan)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((y - want).abs().max() / want.abs().max()) <= tol
+    v = x.double().cpu().numpy()
+    oracle = H.to_numpy() @ (v[0] + 1j * v[1])
+    got = y.double().cpu().numpy()
+    assert np.max(np.abs(got[0] + 1j * got[1] - oracle)) <= \
+        tol * np.max(np.abs(oracle))
+
+
+@pytest.mark.parametrize('space', ['sc', 'xparity'])
+def test_sector_evolve_and_eigsolve_on_card(card, space):
+    from dynamite_tpu_torch.ops.sector_apply import sector_apply
+    base = subspaces.SpinConserve(12, 6)
+    sub = base if space == 'sc' else subspaces.XParity(base, '+')
+    H = models.heisenberg(12)
+    H.add_subspace(sub)
+    v = _planes(sub.get_dimension(), seed=5)
+    psi = State(subspace=sub)
+    psi.set_planes(v)
+    before = sector_apply.applies
+    got = evolve(H, psi, t=1.0).to_numpy()
+    assert sector_apply.applies > before
+    want = scipy.sparse.linalg.expm_multiply(-1j * H.to_numpy(),
+                                             v[0] + 1j * v[1])
+    assert np.linalg.norm(got - want) < 1e-6
+    evals = eigsolve(H, nev=2)
+    exact = np.linalg.eigvalsh(H.to_numpy().toarray())[:2]
+    assert np.allclose(evals[:2], exact, rtol=1e-10, atol=1e-12)
 
 
 def test_distributed_dot_on_nccl(card, tmp_path):

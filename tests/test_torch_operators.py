@@ -201,17 +201,19 @@ def test_conserves_matches_reference():
 
 
 def test_unported_subspaces_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        subspaces.SpinConserve(L, L // 2)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(NotImplementedError, match='ROADMAP.*item 10'):
         subspaces.Explicit([0, 1])
+    with pytest.raises(NotImplementedError, match='ROADMAP.*item 10'):
+        subspaces.Auto(models.heisenberg(L), 'UUUUDDDD')
 
 
 def test_port_imports_no_jax():
     code = ('import sys; import dynamite_tpu_torch, '
             'dynamite_tpu_torch.operators, dynamite_tpu_torch.computations, '
             'dynamite_tpu_torch.models, dynamite_tpu_torch.extras, '
-            'dynamite_tpu_torch.msc_tools; '
+            'dynamite_tpu_torch.msc_tools, dynamite_tpu_torch.subspaces, '
+            'dynamite_tpu_torch.ops.sectors, '
+            'dynamite_tpu_torch.ops.sector_apply; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "dynamite_tpu")]; '
             'assert not bad, bad')
