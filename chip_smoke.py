@@ -34,17 +34,30 @@ main paths at L=24 with the random-field Heisenberg chain: on Full(24) (dim
 6. ``eigsolve``: a child process in float64 (precision is fixed at
    initialization): L=16 against scipy's eigsh, the sector engine's float64
    record, and eigsolve(localized(22)) on SpinConserve(22, 11) to 1e-10;
-   then float32 at L=24 on Full(24) and on XParity(Full(24), '+');
+   then float32 at L=24 on Full(24), with the half-chain RDM and entropy
+   of its ground state on the card against the host route, and on
+   XParity(Full(24), '+');
 7. ``sector_solves``: evolve and eigsolve of localized(24) on
-   SpinConserve(24, 12), and the eigsolve on XParity(SpinConserve(24, 12),
-   '+'), float32, with a profile of where the eigsolve's device time goes;
-8. ``distributed``: one child process per GPU, on NCCL, runs evolve and
+   SpinConserve(24, 12), the half-chain entanglement entropy of its ground
+   state (the JAX bench's eigsolve_L24 entropy field) and an uneven cut,
+   each on the card against the host route, and the eigsolve on
+   XParity(SpinConserve(24, 12), '+'), float32, with a profile of where the
+   eigsolve's device time goes;
+8. ``syk``: the XOR-dense engine (torch ops, cuBLAS products) against its
+   plain version on syk(16) on Parity(16, 'even') and syk(20) on
+   Parity(20, 'even') (N = 32 and 40 Majoranas), float32, with times,
+   nnz/s, the split, channels, tables, bounds, launches and idle share per
+   apply, and cuSPARSE's SpMV of the same matrix; then eigsolve(syk(16))
+   against the JAX package's eigenvalue;
+9. ``distributed``: one child process per GPU, on NCCL, runs evolve and
    eigsolve at L=24 through the sharded route (one rank on a one-GPU
    machine: no exchange), and with two GPUs or more holds the gathered
    ``H.dot`` against the one-device route.
 
-Each phase prints one JSON line (the sector engine's records also one
-``{"engines": [...]}`` line); any failure raises (non-zero exit). The last
+Each phase prints one JSON line (the sector and XOR-dense engines'
+records also one ``{"engines": [...]}`` line), with the device memory peak
+of its solves (``tools.get_memory_usage``); any failure raises (non-zero
+exit). The last
 lines are the card's ``nvidia-smi`` name and power limit, the kernel records
 (the matvec kernel on each route, and the diagonal kernel), and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -60,6 +73,10 @@ and without the diagonal stream (see group_costs).
 
 times the sector engine's one product per column channel against the JAX
 package's batching of the channels that share a matrix (see sector_forms).
+
+    python3 chip_smoke.py --xor-dense-la
+
+times the XOR-dense engine at every split La (see xor_dense_la_sweep).
 """
 
 import json
@@ -74,6 +91,7 @@ CHILD_FLAG = '--child-eigsolve-double'
 CHILD_DIST = '--child-distributed'
 GROUP_COSTS = '--group-costs'
 SECTOR_FORMS = '--sector-forms'
+XOR_DENSE_LA = '--xor-dense-la'
 
 # error bounds of the kernel against its plain version: max|dy| / max|y|.
 # Both sum the same terms in float arithmetic of the working type but in
@@ -95,6 +113,21 @@ GEMM_PEAK_FLOPS = {'float32': 67e12, 'float64': 67e12}
 EVAL0_SC24 = -43.38
 EVAL0_SC22 = -39.65
 EVAL0_TOL = 0.01
+# the half-chain entanglement entropy of that SC(24, 12) ground state, as
+# the JAX bench printed it (BENCH_r05.json, eigsolve_L24); the device and
+# host routes here must agree to ENTROPY_ROUTES_TOL, and tr rho be 1
+ENTROPY_SC24 = 0.4966
+ENTROPY_TOL = 2e-3
+ENTROPY_ROUTES_TOL = 1e-5
+# the lowest eigenvalue of syk(16) on Parity(16, 'even'), as the JAX
+# package computes it: dynamite_tpu.computations.eigsolve(H, nev=1,
+# tol=1e-10) in float64 on JAX-CPU, through its XOR-dense engine (at
+# xor_dense_la = 5; the eigenvalue does not depend on the split), printed
+# by tests/syk_eval0_reference.py
+EVAL0_SYK16 = -254.11831878534292
+EVAL0_SYK_RTOL = 1e-4
+# bench.py's table budget for syk_N40 (its tables take ~9.7 GB)
+SYK_N40_BUDGET = 11 << 30
 
 
 def emit(obj):
@@ -668,40 +701,115 @@ def counted(fn, what, engine='xor'):
     to 0 just before it and read just after, so no check's own launch is
     counted: ``xor_apply_sharded.launches`` (the one wrapper that launches
     the matvec kernel) and ``xor_diagonal.launches`` (the diagonal stream's
-    builds, once per operator, dtype and layout), and beside them the sector
-    engine's applies (``sector_apply.applies``; torch ops, no kernel of its
-    own). Raises unless the ``engine`` ('xor' or 'sector') ran at least once
-    per matvec the solver counted, and, for the sector engine, unless the
-    XOR kernel did not run. Returns (fn's result, {name: count}, solver
-    stats, wall seconds)."""
+    builds, once per operator, dtype and layout), and beside them the
+    engines' applies (``sector_apply.applies``, ``xor_dense_apply.applies``;
+    torch ops, no kernel of their own). Raises unless the ``engine`` ('xor',
+    'sector' or 'xor_dense') ran at least once per matvec the solver
+    counted, and, for an engine, unless the XOR kernel did not run. Returns
+    (fn's result, {name: count}, solver stats, wall seconds)."""
     import torch
     from dynamite_tpu_torch import computations
     from dynamite_tpu_torch.ops.sector_apply import sector_apply
     from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded,
                                                   xor_diagonal)
+    from dynamite_tpu_torch.ops.xor_dense import xor_dense_apply
     torch.cuda.synchronize()
     xor_apply_sharded.launches = 0
     xor_diagonal.launches = 0
     sector_apply.applies = 0
+    xor_dense_apply.applies = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {'xor_apply': xor_apply_sharded.launches,
                 'xor_diagonal': xor_diagonal.launches,
-                'sector_apply': sector_apply.applies}
+                'sector_apply': sector_apply.applies,
+                'xor_dense_apply': xor_dense_apply.applies}
     stats = dict(computations.last_solve_stats)
-    ran = launches['xor_apply' if engine == 'xor' else 'sector_apply']
+    ran = launches[{'xor': 'xor_apply', 'sector': 'sector_apply',
+                    'xor_dense': 'xor_dense_apply'}[engine]]
     if not ran >= stats['matvecs'] > 0:
         raise RuntimeError(f'{what}: {ran} {engine} applies for '
                            f'{stats["matvecs"]} matvecs')
-    if engine == 'sector' and launches['xor_apply']:
-        raise RuntimeError(f'{what}: the XOR kernel ran on a sector path')
+    if engine != 'xor' and launches['xor_apply']:
+        raise RuntimeError(f'{what}: the XOR kernel ran on the {engine} '
+                           'path')
     return out, launches, stats, seconds
 
 
 def add_counts(*counts):
     return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def timed(fn):
+    """(fn's result, wall milliseconds), the device synchronized before and
+    after the call."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def peak_gb():
+    """The device memory peak since the last ``tools.track_memory()``, in
+    GB (``torch.cuda.max_memory_allocated``), then a new tracking window."""
+    from dynamite_tpu_torch import tools
+    gb = tools.get_memory_usage(group_by='rank', max_usage=True)
+    tools.track_memory()
+    return gb
+
+
+def rdm_record(name, state, keep):
+    """The RDM of ``state`` over ``keep`` on the card (``ops.rdm``) and its
+    entanglement entropy, against the host route (``to_numpy``, the scatter
+    into 2^L and ``rdm_from_full_vector`` of ``rdm_host``, numpy's
+    eigvalsh), with their times: the RDM's device part alone (the blocks,
+    no host copy) with the SpinConserve index tables cold (built in the
+    call) and warm (3 calls), the host matrix, and the entropy on the card.
+    Raises unless the two routes' entropies agree within
+    ENTROPY_ROUTES_TOL and tr rho is within 1e-5 of 1."""
+    import numpy as np
+    from dynamite_tpu_torch.computations import (dm_entanglement_entropy,
+                                                 entanglement_entropy,
+                                                 reduced_density_matrix)
+    from dynamite_tpu_torch.ops import rdm
+    from dynamite_tpu_torch.subspaces import SpinConserve
+    keep = tuple(keep)
+    rdm.clear_index_cache()
+    _b, cold_ms = timed(lambda: rdm.rdm_blocks(state, keep))
+    warm_ms = [timed(lambda: rdm.rdm_blocks(state, keep))[1]
+               for _ in range(3)]
+    rho, rho_ms = timed(lambda: reduced_density_matrix(state, keep))
+    S, entropy_ms = timed(lambda: entanglement_entropy(state, keep))
+    t0 = time.perf_counter()
+    rho_host = rdm.rdm_host(state, keep)
+    S_host = float(dm_entanglement_entropy(rho_host))
+    host_s = time.perf_counter() - t0
+    if isinstance(state.subspace, SpinConserve):
+        blocks, _index = rdm.spinconserve_index(state.subspace, keep,
+                                                state.data.device)
+        flops = sum(2 * (2 * n_k) ** 2 * n_t for _g, n_t, n_k, _o in blocks)
+        n_blocks = len(blocks)
+    else:
+        n, t = 1 << len(keep), 1 << (state.L - len(keep))
+        flops, n_blocks = 2 * 2 * n * n * 2 * t, 1
+    trace = float(np.trace(rho).real)
+    rec = {'case': name, 'L': state.L, 'dim': len(state), 'keep': list(keep),
+           'blocks': n_blocks, 'gemm_gflop': flops / 1e9,
+           'rdm_cold_ms': cold_ms, 'rdm_warm_ms': warm_ms,
+           'rdm_host_matrix_ms': rho_ms, 'entropy_device_ms': entropy_ms,
+           'entropy': float(S), 'entropy_host': S_host,
+           'host_route_s': host_s, 'trace': trace,
+           'index_cache_mb': rdm.index_cache_bytes() / 1e6,
+           'rho_max_abs_err_vs_host': float(np.max(np.abs(rho - rho_host)))}
+    if not (abs(S - S_host) <= ENTROPY_ROUTES_TOL and abs(trace - 1) <= 1e-5):
+        emit({'phase': 'rdm', 'cases': [rec]})
+        raise RuntimeError(f'{name}: entropy {S} on the card against '
+                           f'{S_host} on the host, tr rho {trace}')
+    return rec
 
 
 def phase_evolve():
@@ -733,6 +841,7 @@ def phase_evolve():
     sub = Full(L=L)
     H.add_subspace(sub)
     psi = State(state='random', subspace=sub, seed=42)
+    peak_gb()
     r, launches, stats, evolve_s = counted(lambda: evolve(H, psi, t=1.0),
                                            'evolve L=24')
     nrm = r.norm()
@@ -740,7 +849,7 @@ def phase_evolve():
         raise RuntimeError(f'evolve L=24 norm {nrm}')
     emit({'phase': 'evolve', 'L14_rel_err_vs_expm_multiply': err_14,
           'L': L, 'dim': 1 << L, 'evolve_s': evolve_s, 'norm': nrm,
-          'launches': launches['xor_apply'],
+          'memory_peak_gb': peak_gb(), 'launches': launches['xor_apply'],
           'diag_builds': launches['xor_diagonal'],
           'last_solve_stats': stats})
     return launches
@@ -849,19 +958,24 @@ def phase_eigsolve():
     H = localized(L)
     sub = Full(L=L)
     H.add_subspace(sub)
+    peak_gb()
     (evals, evecs), launches, stats, eigsolve_s = counted(
         lambda: eigsolve(H, nev=1, getvecs=True), 'eigsolve L=24 float32')
+    memory = peak_gb()
     lam = float(evals[0])
     v = evecs[0]
     resid = float(torch.linalg.vector_norm(H.dot(v).data - lam * v.data))
     resid /= abs(lam)
+    # the half-chain RDM of the Full(24) ground state, card against host
+    rdm_full = rdm_record('full24_half', v, range(L // 2))
     emit({'phase': 'eigsolve', 'L': L, 'dim': 1 << L, 'precision': 'single',
           'eval0': lam, 'relative_residual': resid,
           'eigsolve_s': eigsolve_s, 'matvecs': stats['matvecs'],
           'restarts': stats['restarts'],
           'verify_cycles': stats['verify_cycles'],
           'launches': launches['xor_apply'],
-          'diag_builds': launches['xor_diagonal']})
+          'diag_builds': launches['xor_diagonal'],
+          'memory_peak_gb': memory, 'rdm': rdm_full})
     # the solver's own float32 tolerance is 1e-6 relative to the eigenvalue;
     # the recomputed residual adds float32 rounding of H v
     if not (np.isfinite(lam) and resid <= 1e-4):
@@ -913,19 +1027,28 @@ def phase_sector_solves(L=24):
     H.get_mat()
     build_s = time.perf_counter() - t0
     psi = State(state='random', subspace=sub, seed=42)
+    peak_gb()
     r, ev_launches, ev_stats, evolve_s = counted(
         lambda: evolve(H, psi, t=1.0), 'evolve SpinConserve(24, 12)',
         engine='sector')
+    evolve_memory = peak_gb()
     nrm = r.norm()
     if not (np.isfinite(nrm) and abs(nrm - 1.0) <= 1e-3):
         raise RuntimeError(f'evolve SpinConserve(24, 12): norm {nrm}')
     (evals, evecs), eig_launches, eig_stats, eigsolve_s = counted(
         lambda: eigsolve(H, nev=1, getvecs=True),
         'eigsolve SpinConserve(24, 12)', engine='sector')
+    eigsolve_memory = peak_gb()
     lam = float(evals[0])
     v = evecs[0]
     resid = float(torch.linalg.vector_norm(H.dot(v).data - lam * v.data))
     resid /= abs(lam)
+    # the JAX bench's entropy field of eigsolve_L24: the half chain of the
+    # ground state, and an uneven cut
+    peak_gb()
+    half = rdm_record('sc24_half', v, range(L // 2))
+    uneven = rdm_record('sc24_keep8', v, range(8))
+    rdm_memory = peak_gb()  # the cached index tables included
     profile = profile_window(lambda: eigsolve(H, nev=1), n=1, top=8,
                              warmup=False)
     rec = {'phase': 'sector_solves', 'L': L, 'dim': sub.get_dimension(),
@@ -939,11 +1062,22 @@ def phase_sector_solves(L=24):
            'eigsolve_matvecs': eig_stats['matvecs'],
            'eigsolve_restarts': eig_stats['restarts'],
            'eigsolve_launches': eig_launches,
-           'eigsolve_profile': profile}
+           'eigsolve_profile': profile,
+           'evolve_memory_peak_gb': evolve_memory,
+           'eigsolve_memory_peak_gb': eigsolve_memory,
+           'rdm_memory_peak_gb': rdm_memory,
+           'entropy_half_chain': half['entropy'],
+           'jax_bench_entropy_half_chain': ENTROPY_SC24,
+           'entropy_s': half['entropy_device_ms'] / 1e3,
+           'rdm': [half, uneven]}
     if not (resid <= 1e-4 and abs(lam - EVAL0_SC24) <= EVAL0_TOL):
         emit(rec)
         raise RuntimeError(f'float32 SpinConserve(24, 12) eigsolve: '
                            f'eigenvalue {lam}, residual {resid:.3e}')
+    if not abs(half['entropy'] - ENTROPY_SC24) <= ENTROPY_TOL:
+        emit(rec)
+        raise RuntimeError(f'SpinConserve(24, 12) half-chain entropy '
+                           f'{half["entropy"]}, not {ENTROPY_SC24}')
     del H, psi, r, evecs, v
     torch.cuda.empty_cache()
 
@@ -970,6 +1104,257 @@ def phase_sector_solves(L=24):
         raise RuntimeError(f'float32 XParity(SpinConserve(24, 12)) eigsolve '
                            f'residual {resid:.3e}')
     return rec
+
+
+def xor_library_spmv(plan, x, y_engine):
+    """The XOR-dense engine's yardstick: cuSPARSE's CSR SpMV (complex in x's
+    precision, int32 indices) of the same matrix, built on the card
+    straight in CSR form: an XOR-mode row has one entry per mask group, in
+    column row ^ m', so every row holds the groups' values in group order
+    (zeros included, as bench.py's dim * H.nnz counts them). A matrix of
+    2**31 entries or more is split into row blocks under that (cuSPARSE's
+    SpMV through torch fails on one such matrix with int64 indices), and
+    the time is that of all blocks' SpMVs. Returns ((ms, max|dy|/max|y|
+    against the engine, entries, blocks), bytes), or (None, bytes) when
+    the matrix would not fit 80% of the card's free memory; the port never
+    calls it, and the matrix is freed before returning."""
+    import torch
+    from dynamite_tpu_torch.ops.index_maps import parity
+    dev, dim, G = x.device, plan.dim_left, len(plan.groups)
+    cdt = torch.complex64 if x.dtype == torch.float32 else torch.complex128
+    need = dim * G * (4 + torch.empty((), dtype=cdt).element_size())
+    if need > 0.8 * torch.cuda.mem_get_info(dev)[0]:
+        return None, need
+    cols = torch.empty((dim, G), dtype=torch.int32, device=dev)
+    vals = torch.empty((dim, G), dtype=cdt, device=dev)
+    rows = torch.arange(dim, dtype=torch.int64, device=dev)
+    kets = plan.row_states(rows)
+    for g, (m, pm, signs, coeffs) in enumerate(plan.groups):
+        S = torch.as_tensor(signs, device=dev)
+        w = 1 - 2 * parity((kets ^ m)[:, None] & S[None, :])
+        vals[:, g] = w.to(torch.complex128) @ torch.as_tensor(coeffs,
+                                                               device=dev)
+        cols[:, g] = rows ^ pm
+    del rows, kets
+    per = max(1, (2 ** 31 - 1) // G)
+    blocks = []
+    for r0 in range(0, dim, per):
+        n = min(per, dim - r0)
+        crow = torch.arange(0, n * G + 1, G, dtype=torch.int32, device=dev)
+        blocks.append((r0, n, torch.sparse_csr_tensor(
+            crow, cols[r0:r0 + n].reshape(-1), vals[r0:r0 + n].reshape(-1),
+            size=(n, dim))))
+    xc = torch.complex(x[0], x[1])
+    y = torch.empty(dim, dtype=cdt, device=dev)
+
+    def spmv():
+        for r0, n, A in blocks:
+            y[r0:r0 + n] = A @ xc
+
+    spmv()
+    ye = torch.complex(y_engine[0], y_engine[1])
+    err = float((y - ye).abs().max() / ye.abs().max())
+    ms = cuda_ms(spmv)
+    del blocks, cols, vals, xc, y, ye
+    torch.cuda.empty_cache()
+    return (ms, err, dim * G, -(-dim // per)), need
+
+
+def xor_dense_record(name, H, sub, dtype):
+    """Build the XOR-dense engine of H on sub (the host build, table scatter
+    on the card included, timed), hold its apply against the plain version
+    (the XOR kernel's on-the-fly sweep, ``xor_apply_reference``, one call on
+    the card, timed) within KERNEL_TOL, time the engine (CUDA events, 3
+    warm-up, 20 reps), profile 10 applies, and count its split, channels,
+    tables and dense GFLOP. Bounds as :func:`sector_record`'s: the table
+    stream (x, y and the tables once at HBM rate), the products at
+    ``GEMM_PEAK_FLOPS``, and the matrix-free work. nnz/s counts as
+    bench.py's syk stage does (dim * H.nnz per apply). The yardstick is
+    cuSPARSE's SpMV of the same matrix (``xor_library_spmv``), where it
+    fits the card's free memory."""
+    import torch
+    from dynamite_tpu_torch.ops.xor_apply import XorTables, xor_apply_reference
+    dt = str(dtype).replace('torch.', '')
+    peak_gb()
+    (kernel, build_ms) = timed(lambda: H.get_mat(subspaces=(sub, sub)))
+    t = kernel.xor_dense
+    if t is None:
+        raise RuntimeError(f'{name}: the XOR-dense engine was not built')
+    build_memory = peak_gb()
+    dim = sub.get_dimension()
+    x = random_planes(dim, dtype, seed=17)
+    y = kernel.apply(x)
+    plain_tables = XorTables(kernel.plan, sub)
+    y_plain, plain_ms = timed(lambda: xor_apply_reference(x, plain_tables))
+    if not torch.isfinite(y).all():
+        raise RuntimeError(f'{name} {dt}: non-finite XOR-dense output')
+    abs_err = float((y - y_plain).abs().max())
+    rel_err = abs_err / float(y_plain.abs().max())
+    ms = cuda_ms(lambda: kernel.apply(x))
+    prof = profile_window(lambda: kernel.apply(x), top=4)
+    nnz = dim * H.nnz
+    got, need = xor_library_spmv(kernel.plan, x, y)
+    lib = {'library_ms': None, 'library_rel_err': None, 'library_nnz': None,
+           'library_gb': need / 1e9}
+    if got is None:
+        lib['library_skipped'] = (f'its CSR needs {need / 1e9:.1f} GB, more '
+                                  'than 80% of the free memory')
+    else:
+        lib.update(library_ms=got[0], library_rel_err=got[1],
+                   library_nnz=got[2], library_row_blocks=got[3])
+    itemsize = x.element_size()
+    xy_bytes = 2 * 2 * dim * itemsize
+    by_bytes = (xy_bytes + t.table_bytes) / HBM_BYTES_PER_S * 1e3
+    by_dense = t.dense_flops / GEMM_PEAK_FLOPS[dt] * 1e3
+    mf_flops = matrix_free_flops(kernel.plan)
+    rec = {'case': name, 'engine': 'xor_dense', 'dtype': dt, 'L': sub.L,
+           'dim': dim, 'terms': kernel.plan.nterms,
+           'groups': len(kernel.plan.groups), 'nnz_per_row': H.nnz,
+           **kernel.xor_dense_info, 'table_mb': t.table_bytes / 1e6,
+           'build_s': build_ms / 1e3, 'build_memory_peak_gb': build_memory,
+           'max_abs_err': abs_err, 'rel_err': rel_err, 'tol': KERNEL_TOL[dt],
+           'ms': ms, 'plain_ms': plain_ms,
+           'nnz_per_s': nnz / (ms * 1e-3),
+           'dense_gflop_per_apply': t.dense_flops / 1e9,
+           'dense_gflop_per_s': t.dense_flops / (ms * 1e-3) / 1e9,
+           'bytes_bound_ms': by_bytes, 'dense_bound_ms': by_dense,
+           'bound_ms': max(by_bytes, by_dense),
+           'bound_by': 'bytes' if by_bytes >= by_dense else 'operations',
+           'matrix_free_gflop_per_apply': mf_flops / 1e9,
+           'matrix_free_bound_ms': max(
+               xy_bytes / HBM_BYTES_PER_S, mf_flops / PEAK_FLOPS[dt]) * 1e3,
+           'torch_ops_per_apply': t.torch_ops_per_apply,
+           'launches_per_apply': prof['launches_per_call'],
+           'device_ops_per_apply': prof.get('device_ops_per_call'),
+           'device_busy_ms_per_apply': prof['busy_ms'],
+           'idle_share': prof['idle_share'],
+           'top_kernels': prof.get('top_kernels'), **lib}
+    if lib['library_nnz']:
+        rec['library_bytes_bound_ms'] = (xy_bytes + need) \
+            / HBM_BYTES_PER_S * 1e3
+    if not rel_err <= KERNEL_TOL[dt]:
+        emit({'phase': 'syk', 'cases': [rec]})
+        raise RuntimeError(f'{name} {dt}: the XOR-dense engine disagrees '
+                           f'with its plain version ({rel_err:.3e})')
+    if lib['library_rel_err'] is not None and \
+            not lib['library_rel_err'] <= 10 * KERNEL_TOL[dt]:
+        emit({'phase': 'syk', 'cases': [rec]})
+        raise RuntimeError(f'{name} {dt}: the CSR yardstick disagrees with '
+                           f'the XOR-dense engine ({lib["library_rel_err"]})')
+    return rec, kernel
+
+
+def phase_syk():
+    """SYK through the XOR-dense engine, float32: syk(16) on Parity(16,
+    'even') (N = 32 Majoranas, dim 32,768) and syk(20) on Parity(20,
+    'even') (N = 40, dim 524,288, its ~9.7 GB of tables under bench.py's
+    11 GiB budget), each against its plain version and cuSPARSE (see
+    xor_dense_record); then eigsolve(syk(16), nev=1), counted, against the
+    JAX package's eigenvalue. Returns the records."""
+    import torch
+    from dynamite_tpu_torch import config
+    from dynamite_tpu_torch.computations import eigsolve
+    from dynamite_tpu_torch.models import syk
+    from dynamite_tpu_torch.subspaces import Parity
+
+    recs = []
+    H, model_s = timed(lambda: syk(16))
+    sub = Parity('even', L=16)
+    H.add_subspace(sub)
+    rec, kernel = xor_dense_record('syk_N32', H, sub, torch.float32)
+    rec['model_build_s'] = model_s / 1e3
+    recs.append(rec)
+    peak_gb()
+    evals, launches, stats, eigsolve_s = counted(
+        lambda: eigsolve(H, nev=1), 'eigsolve syk(16)', engine='xor_dense')
+    lam = float(evals[0])
+    rel = abs(lam - EVAL0_SYK16) / abs(EVAL0_SYK16)
+    solve = {'eval0': lam, 'jax_eval0': EVAL0_SYK16, 'rel_err_vs_jax': rel,
+             'eigsolve_s': eigsolve_s, 'matvecs': stats['matvecs'],
+             'restarts': stats['restarts'], 'launches': launches,
+             'memory_peak_gb': peak_gb()}
+    emit({'phase': 'syk', 'cases': recs, 'eigsolve': solve})
+    if not rel <= EVAL0_SYK_RTOL:
+        raise RuntimeError(f'eigsolve syk(16): {lam} against the JAX '
+                           f'package\'s {EVAL0_SYK16}')
+    del H, kernel
+    torch.cuda.empty_cache()
+
+    saved = getattr(config, 'ell_budget', None)
+    config.ell_budget = SYK_N40_BUDGET
+    try:
+        H, model_s = timed(lambda: syk(20))
+        sub = Parity('even', L=20)
+        H.add_subspace(sub)
+        rec, kernel = xor_dense_record('syk_N40', H, sub, torch.float32)
+        rec['model_build_s'] = model_s / 1e3
+        recs.append(rec)
+    finally:
+        if saved is None:
+            del config.ell_budget
+        else:
+            config.ell_budget = saved
+    del H, kernel
+    torch.cuda.empty_cache()
+    emit({'phase': 'syk', 'cases': recs[1:]})
+    return recs, solve
+
+
+def xor_dense_la_sweep():
+    """``python3 chip_smoke.py --xor-dense-la``: the XOR-dense engine's
+    apply at every split La whose tables fit 4 GiB, syk(16) on Parity(16,
+    'even'), float32 (and every La from 6 of syk(20) on Parity(20, 'even')
+    under 11 GiB, the split the engine picks among them): ms (CUDA events),
+    launches and device busy time per
+    apply, channels, table bytes, the products' GFLOP, and the modeled time
+    of ``xor_dense.pick_split`` beside each. The data that fits
+    ``xor_dense.COST_MODEL``."""
+    import torch
+    from dynamite_tpu_torch import config
+    from dynamite_tpu_torch.models import syk
+    from dynamite_tpu_torch.ops import xor_dense
+    from dynamite_tpu_torch.ops.apply import _Plan
+    from dynamite_tpu_torch.ops.xor_apply import _effective_sign_mask
+    from dynamite_tpu_torch.subspaces import Parity
+    config.precision = 'single'
+    config._initialize()
+    print(phase_env(), flush=True)
+    for n, las, budget in ((16, range(4, 15), 4 << 30),
+                           (20, range(6, 12), SYK_N40_BUDGET)):
+        H = syk(n)
+        sub = Parity('even', L=n)
+        plan = _Plan(H.msc, sub, sub)
+        nbits = sub.get_dimension().bit_length() - 1
+        eff = [[_effective_sign_mask(int(s), int(m), sub, sub)
+                for s in signs] for m, _pm, signs, _c in plan.groups]
+        x = random_planes(sub.get_dimension(), torch.float32, seed=17)
+        for La in las:
+            keys = xor_dense._typed_channels_at(plan.groups, eff, La)
+            if xor_dense.table_bytes(keys, La, nbits, 4) > budget:
+                continue
+            t = xor_dense.XorDenseTables(plan, eff, La, 4)
+            _runs, build_ms = timed(lambda: t.on(torch.float32, x.device))
+            ms = cuda_ms(lambda: xor_dense.xor_dense_apply(x, t))
+            prof = profile_window(lambda: xor_dense.xor_dense_apply(x, t))
+            emit({'sweep': 'xor_dense_la', 'N': 2 * n, 'La': La,
+                  'channels': t.channels,
+                  'padded_channels': t.padded_channels,
+                  'table_mb': t.table_bytes / 1e6,
+                  'device_build_s': build_ms / 1e3,
+                  'dense_gflop': t.dense_flops / 1e9, 'ms': ms,
+                  'modeled_ms': xor_dense.modeled_seconds(
+                      t.channels, La, nbits, 4) * 1e3,
+                  'torch_ops_per_apply': t.torch_ops_per_apply,
+                  'launches_per_apply': prof['launches_per_call'],
+                  'busy_ms': prof['busy_ms'],
+                  'idle_share': prof['idle_share']})
+            del t, _runs
+            torch.cuda.empty_cache()
+        pick = xor_dense.pick_split(plan.groups, eff, nbits, budget, 4)
+        emit({'sweep': 'xor_dense_la', 'N': 2 * n, 'picked_La': pick[1],
+              'modeled_ms': pick[0] * 1e3})
+        del H, plan, x
+        torch.cuda.empty_cache()
 
 
 def child_distributed(rank, world, port):
@@ -1311,20 +1696,32 @@ def main():
 
     config.precision = 'single'
     config._initialize()
+    t_start = time.perf_counter()
+    seconds = {}
 
-    card = phase_env()
-    rows = phase_kernel()
-    sharded_rows = phase_kernel_sharded(rows)
-    engines = phase_sector()
+    def run(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__] = time.perf_counter() - t0
+        return out
+
+    card = run(phase_env)
+    rows = run(phase_kernel)
+    sharded_rows = run(phase_kernel_sharded, rows)
+    engines = run(phase_sector)
     # each main-path call counts its own launches (see counted); one
     # wrapper launches the kernel on both routes, and the phase tells the
     # layout: one block here, one block per rank in the distributed child
-    ev_launches = phase_evolve()
-    eig_launches, child_recs = phase_eigsolve()
+    ev_launches = run(phase_evolve)
+    eig_launches, child_recs = run(phase_eigsolve)
     launches = add_counts(ev_launches, eig_launches)
     engines += child_recs['sector_double']['cases']
-    phase_sector_solves()
-    dist_rec = phase_distributed()
+    run(phase_sector_solves)
+    syk_recs, _syk_solve = run(phase_syk)
+    engines += syk_recs
+    dist_rec = run(phase_distributed)
+    emit({'phase_seconds': seconds,
+          'total_s': time.perf_counter() - t_start})
     diag_builds = launches['xor_diagonal'] + dist_rec['diag_builds_all_ranks']
     if not diag_builds > 0:
         raise RuntimeError('the main path built no diagonal stream')
@@ -1337,8 +1734,9 @@ def main():
     shard_case = next(r for r in sharded_rows
                       if r['case'] == 'localized_full'
                       and r['dtype'] == 'float32' and r['P'] == 4)
-    # the sector engine: torch ops and cuBLAS products, no kernel of the
-    # port's own, so its records stand apart from the kernels' line
+    # the sector and XOR-dense engines: torch ops and cuBLAS products, no
+    # kernel of the port's own, so their records stand apart from the
+    # kernels' line
     emit({'engines': engines})
     print(card, flush=True)
     emit({'kernels': [{
@@ -1398,5 +1796,8 @@ if __name__ == '__main__':
         group_costs()
     elif sys.argv[1:] == [SECTOR_FORMS]:
         sector_forms()
+    elif sys.argv[1:] == [XOR_DENSE_LA]:
+        require_card_and_port()
+        xor_dense_la_sweep()
     else:
         main()

@@ -52,8 +52,10 @@ class _Config:
             Defaults to 'double'.
 
         device : str or torch.device, optional
-            Where states and operator tables live. Defaults to CUDA when
-            ``torch.cuda.is_available()``, else the CPU.
+            Where states and operator tables live. Defaults to the CUDA
+            device; without one, the first device computation raises
+            unless the CPU was asked for (``device='cpu'`` here, or
+            ``config.device = 'cpu'`` before it).
             ``parallel.multihost.initialize()`` pins it to this rank's GPU,
             ``cuda:{LOCAL_RANK}``.
 
@@ -84,10 +86,6 @@ class _Config:
         # ran at reduced precision, so they must run in full float32.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-
-        if self._device is None:
-            self._device = torch.device(
-                'cuda' if torch.cuda.is_available() else 'cpu')
 
         self.initialized = True
 
@@ -139,8 +137,19 @@ class _Config:
     @property
     def device(self):
         """The torch.device that holds states and operator tables (this
-        rank's GPU once a process group is up)."""
+        rank's GPU once a process group is up): the CUDA device unless
+        set. Without one it raises: the port never falls back to the CPU
+        on its own."""
         self._initialize()
+        if self._device is None:
+            import torch
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    'dynamite_tpu_torch: no CUDA device is available; to run '
+                    "on the CPU, ask for it: config.device = 'cpu' (or "
+                    "config.initialize(device='cpu')) before the first "
+                    'state or operator')
+            self._device = torch.device('cuda')
         return self._device
 
     @device.setter

@@ -1,5 +1,6 @@
 """
-High-level computations: time evolution and eigensolving.
+High-level computations: time evolution, eigensolving, reduced density
+matrices and entanglement entropies.
 
 Reference analog: src/dynamite/computations.py (there, thin wrappers over
 SLEPc MFN/EPS; here, wrappers over the torch Krylov solvers in
@@ -156,6 +157,111 @@ def eigsolve(H, getvecs=False, nev=1, which='lowest', target=None, tol=None,
         v.set_initialized()
         evecs.append(v)
     return np.asarray(evals, dtype=float), evecs
+
+
+def _check_keep(state, keep):
+    """The validated ``keep`` as an int64 array (the JAX package's checks,
+    in its order)."""
+    state.assert_initialized()
+    if not state.subspace.product_state_basis:
+        raise ValueError('reduced density matrices currently only supported '
+                         'for product state basis subspace types.')
+    keep = np.asarray(keep, dtype=np.int64).reshape(-1)
+    if keep.size == 0:
+        return keep
+    if np.any(keep[1:] <= keep[:-1]):
+        raise ValueError('keep array must be strictly increasing')
+    if np.any(keep < 0):
+        raise ValueError(f'spin index less than zero. keep: {keep}')
+    if np.any(keep >= state.L):
+        raise ValueError('spin index greater than spin chain length minus '
+                         f'one. keep: {keep}')
+    return keep
+
+
+def reduced_density_matrix(state, keep):
+    """Trace out all spins except those in ``keep`` (a strictly increasing
+    list of spin indices); returns the 2**len(keep) density matrix as a
+    host complex128 numpy array, computed on the state's device
+    (:mod:`.ops.rdm`: a permuted reshape and two GEMMs on Full/Parity, one
+    GEMM per kept Hamming weight on SpinConserve)."""
+    keep = _check_keep(state, keep)
+    if keep.size == 0:
+        return np.array([[1]], dtype=np.complex128)
+    from .ops.rdm import rdm_device
+    return rdm_device(state, keep)
+
+
+def _spectrum(state, keep):
+    """The RDM's eigenvalues, taken on the device (block by block on
+    SpinConserve)."""
+    keep = _check_keep(state, keep)
+    if keep.size == 0:
+        return np.ones(1)
+    from .ops.rdm import rdm_spectrum
+    return rdm_spectrum(state, keep)
+
+
+def _entropy_of(w):
+    """-sum w log w over the positive eigenvalues w."""
+    log = np.zeros(w.shape)
+    np.log(w, where=w > 0, out=log)
+    return -np.sum(w * log)
+
+
+def _renyi_of(w, alpha):
+    """The Renyi entropy of a spectrum, for alpha other than 1."""
+    if alpha == 0:
+        return np.log(np.sum(w > 1e-10))
+    if alpha == 'inf':
+        return -np.log(np.max(w))
+    return 1 / (1 - alpha) * np.log(np.sum(w ** alpha))
+
+
+def entanglement_entropy(state, keep):
+    """Bipartite Von Neumann entanglement entropy across the cut defined by
+    ``keep``, from the RDM's spectrum on the device. Equals
+    ``dm_entanglement_entropy(reduced_density_matrix(state, keep))``."""
+    return _entropy_of(_spectrum(state, keep))
+
+
+def dm_entanglement_entropy(dm):
+    """Von Neumann entropy of a density matrix."""
+    return _entropy_of(np.linalg.eigvalsh(dm))
+
+
+def renyi_entropy(state, keep, alpha, method='eigsolve'):
+    """Renyi entropy of the reduced density matrix on ``keep``: with
+    ``method='eigsolve'`` from its spectrum on the device, with
+    'matrix_power' from the host matrix."""
+    if method != 'eigsolve':
+        return dm_renyi_entropy(reduced_density_matrix(state, keep), alpha,
+                                method)
+    w = _spectrum(state, keep)
+    if alpha == 1:
+        return _entropy_of(w)
+    return _renyi_of(w, alpha)
+
+
+def dm_renyi_entropy(dm, alpha, method='eigsolve'):
+    """Renyi entropy H_alpha = log(Tr rho^alpha) / (1 - alpha), with the
+    alpha in {0, 1, 'inf'} limits handled."""
+    if alpha == 1:
+        return dm_entanglement_entropy(dm)
+    if alpha in (0, 'inf'):
+        return _renyi_of(np.linalg.eigvalsh(dm), alpha)
+
+    if method == 'matrix_power':
+        if alpha != int(alpha):
+            raise TypeError('alpha must be an integer for matrix_power '
+                            'method.')
+        trace = np.trace(np.linalg.matrix_power(dm, int(alpha))).real
+    elif method == 'eigsolve':
+        return _renyi_of(np.linalg.eigvalsh(dm), alpha)
+    else:
+        raise ValueError('Valid methods are "eigsolve" and "matrix_power"')
+
+    return 1 / (1 - alpha) * np.log(trace)
 
 
 def get_tstep(ncv, nrm, tol=1e-7):

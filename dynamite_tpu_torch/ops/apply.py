@@ -13,7 +13,11 @@ An operator's MSC terms, grouped by mask m, define
   by ``XParity.reduce_msc``): col(bra) == row ^ m' for a reduced mask m', a
   pure XOR permutation, which runs in the hand-written CUDA kernel on CUDA
   tensors and in its plain PyTorch version on CPU tensors (see
-  :mod:`.xor_apply`);
+  :mod:`.xor_apply`). Operators with many masks or terms (``use_scan``,
+  e.g. SYK) stay on the kernel while its shared-memory tables hold them,
+  in float32 and in float64; past that they take the XOR-dense channel
+  engine (:mod:`.xor_dense`, dense products as torch ops), as the JAX
+  package sends every such operator past its Pallas kernel;
 * square SpinConserve pairs, plain or XParity-wrapped: the sector engine
   (:mod:`.sector_apply`), dense matmuls over the sector-major blocks;
 * any other pair raises NotImplementedError (ROADMAP.md queue 1, item 10).
@@ -22,7 +26,8 @@ Once a process group is up (:func:`..parallel.multihost.initialize`), each
 rank holds a (2, local_dim) block of rows (:mod:`..parallel.mesh`) and the
 XOR apply exchanges blocks pairwise with the ranks its masks reach, then runs
 the kernel's sharded route once (:meth:`OperatorKernel.apply`). The sector
-engine and XParity pairs do not run distributed yet (item 12).
+and XOR-dense engines and XParity pairs do not run distributed yet (item
+12).
 """
 
 import numpy as np
@@ -34,7 +39,14 @@ from ..utils.bitwise import parity as parity_np
 from . import msc as msc_mod
 from .index_maps import device_map
 from .sector_apply import build_sector_apply, sector_apply, sector_supported
-from .xor_apply import XorTables, xor_apply_sharded
+from .xor_apply import _MAX_SMEM, XorTables, xor_apply_sharded
+from .xor_dense import build_xor_dense, xor_dense_apply, xor_dense_supported
+
+# operators with more mask groups than this, or more terms than the next,
+# are ``use_scan`` (the JAX package's ops/apply.py limits): here they may
+# leave the XOR kernel for the XOR-dense engine, once its tables overflow
+UNROLL_GROUP_LIMIT = 128
+UNROLL_TERM_LIMIT = 512
 
 
 def _base(subspace):
@@ -98,6 +110,8 @@ class _Plan:
 
         self.groups = groups
         self.nterms = sum(len(g[2]) for g in groups)
+        self.use_scan = (len(groups) > UNROLL_GROUP_LIMIT
+                         or self.nterms > UNROLL_TERM_LIMIT)
 
     def row_states(self, rows):
         return self.left_map.i2s(rows)
@@ -134,6 +148,13 @@ exchange.exchanges = 0
 exchange.bytes = 0
 
 
+def _kernel_holds(tables):
+    """Whether the XOR kernel's shared-memory tables hold the operator, in
+    float32 and in float64."""
+    return all(tables.smem_bytes(itemsize) <= _MAX_SMEM
+               for itemsize in (4, 8))
+
+
 class OperatorKernel:
     """A matrix-free matvec y = A @ x for one subspace pair.
 
@@ -141,8 +162,10 @@ class OperatorKernel:
     (2, dim_left) result, on x's device and in x's dtype. With a process
     group up, x and the result are this rank's (2, local_dim) rows.
 
-    The engine's tables are ``tables`` (XOR pairs: :class:`XorTables`) or
-    ``sector_plan`` and ``sector_tables`` (SpinConserve pairs);
+    The engine's tables are ``tables`` (XOR pairs: :class:`XorTables`),
+    ``xor_dense`` (many-mask XOR pairs: :class:`.xor_dense.XorDenseTables`,
+    summarized in ``xor_dense_info``) or ``sector_plan`` and
+    ``sector_tables`` (SpinConserve pairs);
     ``conserves_hint`` is the sector engine's conservation flag, a byproduct
     of its build (None for the XOR engine, whose pairs are decided
     symbolically).
@@ -155,6 +178,8 @@ class OperatorKernel:
         self.left = left
         self.right = right
         self.tables = None
+        self.xor_dense = None
+        self.xor_dense_info = None
         self.sector_plan = None
         self.sector_tables = None
         self.conserves_hint = None
@@ -168,8 +193,26 @@ class OperatorKernel:
                 raise NotImplementedError(
                     'XParity operators over ranks are not ported yet '
                     '(ROADMAP.md queue 1, item 12)')
-            self.tables = XorTables(self.plan, left)
-            return
+            tables = XorTables(self.plan, left)
+            if not self.plan.use_scan or _kernel_holds(tables):
+                self.tables = tables
+                return
+            if xor_dense_supported(self.plan):
+                if distributed:
+                    raise NotImplementedError(
+                        'the XOR-dense engine over ranks is not ported yet '
+                        '(ROADMAP.md queue 1, item 12)')
+                self.xor_dense = build_xor_dense(self.plan, left, right)
+                if self.xor_dense is not None:
+                    self.xor_dense_info = self.xor_dense.info
+                    return
+            raise NotImplementedError(
+                f'{self.plan.nterms} terms in {len(self.plan.groups)} '
+                'groups exceed the XOR kernel\'s shared-memory tables, '
+                'and the XOR-dense engine does not take them (below its '
+                'minimum dimension, or over config.ell_budget); they '
+                'need the general or ELL engine, which is not ported '
+                'yet (ROADMAP.md queue 1, item 10)')
         if not self.plan.groups:
             return  # every term projected away, or none to begin with
         if sector_supported(self.plan, left, right):
@@ -191,18 +234,20 @@ class OperatorKernel:
     def apply(self, x):
         """This rank's rows of y (every row without a process group).
 
-        The sector engine runs on one device. The XOR engine exchanges
-        blocks with the ranks ``me ^ m_hi``, then launches the kernel once.
-        Without a group, or on one rank, the layout is one block and
-        nothing is exchanged. The receive buffers, ``len(hi_list) - 1``
-        blocks, are kept per dtype and device between calls, so the memory
-        grows with the number of distinct high masks."""
+        The sector and XOR-dense engines run on one device. The XOR
+        engine exchanges blocks with the ranks ``me ^ m_hi``, then launches
+        the kernel once. Without a group, or on one rank, the layout is one
+        block and nothing is exchanged. The receive buffers,
+        ``len(hi_list) - 1`` blocks, are kept per dtype and device between
+        calls, so the memory grows with the number of distinct high masks."""
         x = x.contiguous()
         dim = self.plan.dim_right
-        if not self.plan.xor_mode:
+        if self.xor_dense is not None or not self.plan.xor_mode:
             if x.shape != (2, dim):
                 raise ValueError(f'expected (2, {dim}) planes, got '
                                  f'{tuple(x.shape)}')
+            if self.xor_dense is not None:
+                return xor_dense_apply(x, self.xor_dense)
             if self.sector_tables is None:
                 return x.new_zeros((2, self.plan.dim_left))
             return sector_apply(x, self.sector_tables)

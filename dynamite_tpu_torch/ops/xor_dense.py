@@ -1,0 +1,354 @@
+"""
+The XOR-dense channel engine for many-mask XOR-mode operators (SYK): the
+JAX package's ``ops/xor_dense.py`` as torch ops, its products in cuBLAS.
+
+On an XOR-mode pair (Full/Parity, or XParity over either) a term acts in
+index space as
+
+    y[j] += c * (-1)^{pc(j & s)} * x[j ^ m].
+
+Split the index j = (h, a) into high/low parts (a = La low bits) and view
+each plane of the state as an (nh, na) matrix. Terms that share the high
+parts (mh, sh) of their mask and sign and the type of their coefficient
+(purely real or purely imaginary; every Pauli-string term is one or the
+other) merge into one channel:
+
+    Y += diag((-1)^{pc(h & sh)}) . X[h ^ mh, :] @ B_{mh,sh,type}^T
+
+where B[a_out, a_in] = sum of c * sign * (-1)^{pc(a_out & s_low)} over the
+channel's terms with a_in = a_out ^ m_low. A real-type channel multiplies
+both planes by B; an imaginary-type one rotates them (yr -= B xi, yi += B
+xr). The channel keys and the host sums that make each B are the JAX
+package's, so at a fixed La the tables are equal bitwise.
+
+The apply (:func:`xor_dense_apply`) takes the channels of one type in
+batches of up to ``CHANNEL_BATCH``. For a batch of KB channels the
+gathered, signed source rows form A (2 nh, KB na), row (plane, h), column
+(channel, a_in), and the batch's stacked B^T form (KB na, na); then one
+product A @ [B_1^T; ...; B_KB^T] sums the batch's channels into y. A batch
+is three torch ops (a row gather, a sign multiply, an ``addmm_`` into y;
+the imaginary class takes two ``addmm_``, one per plane). TF32 stays off
+(``config``): float32 products run in full float32, float64 ones in DGEMM.
+
+The tables go to the device without a full host copy: the host sums each
+channel's terms per distinct m_low into a line of na values (the entries
+B[a, a ^ m_low]), and the device table, zeroed, receives the lines by one
+scatter per chunk of lines.
+
+La minimizes a cost model (dense products, table stream, per-batch host
+cost) under the table budget ``config.ell_budget`` (default 4 GiB, counting
+the padded channels of the last batch of each class and every table the
+engine allocates). Its constants (:data:`COST_MODEL`) were fitted on an
+H100 (``chip_smoke.py --xor-dense-la``; PERF.md).
+
+The engine's plain version is the XOR kernel's
+:func:`.xor_apply.xor_apply_reference`, the on-the-fly sweep over the
+terms.
+"""
+
+from collections import namedtuple
+
+import numpy as np
+import torch
+
+from ..utils.bitwise import parity
+
+MIN_DIM = 1 << 12     # below this, launch overhead dominates any engine
+CHANNEL_BATCH = 64    # channels per product (the JAX package's batch)
+# the JAX package's ops/ell.py table budget, read from config.ell_budget
+DEFAULT_ELL_BUDGET = 4 << 30
+_COEFF_TOL = 0.0      # exact: a term is real xor imaginary
+_SCATTER_LINES = 4096  # lines per device scatter of the table build
+
+#: The split's cost model: ``gemm_flops`` the products' rate, reached by
+#: channels of width na at na / (na + ``halfwidth``); ``tile`` the product
+#: tile the rows and columns are padded to; ``hbm_bps`` the table stream's
+#: rate; ``step_s`` the host cost of one batch.
+CostModel = namedtuple('CostModel',
+                       'gemm_flops hbm_bps step_s tile halfwidth')
+# fitted on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
+# --xor-dense-la: SYK N=32 at La = 4..10 and N=40 at La = 9, float32; 9.5%
+# rms error in log time; PERF.md): cuBLAS pads no tile, the products reach
+# 52 TFLOP/s at wide channels, half of it at na = 128, and a batch costs
+# ~30 us of host time that the device does not hide
+COST_MODEL = CostModel(gemm_flops=52e12, hbm_bps=3.35e12, step_s=30e-6,
+                       tile=1, halfwidth=128)
+
+
+def ell_budget():
+    """Bytes of device memory the engine's tables may take."""
+    from .. import config
+    return getattr(config, 'ell_budget', DEFAULT_ELL_BUDGET)
+
+
+def _typed_channels_at(groups, eff, La):
+    """Distinct (mh, sh, type) channel keys at a given split."""
+    keys = set()
+    for gi, (m, pm, signs, coeffs) in enumerate(groups):
+        mh = pm >> La
+        for (s_eff, _sgn), c in zip(eff[gi], coeffs):
+            if abs(c.real) > _COEFF_TOL:
+                keys.add((mh, s_eff >> La, 0))
+            if abs(c.imag) > _COEFF_TOL:
+                keys.add((mh, s_eff >> La, 1))
+    return keys
+
+
+def _padded(count):
+    """Channels a class of ``count`` channels allocates: whole batches."""
+    batch = min(CHANNEL_BATCH, count)
+    return -(-count // batch) * batch if count else 0
+
+
+def table_bytes(keys, La, nbits, coeff_bytes):
+    """Device bytes of the tables for channel ``keys``: per padded channel
+    its (na, na) matrix, its row index (int64) and row signs."""
+    na, nh = 1 << La, 1 << (nbits - La)
+    c_pad = sum(_padded(sum(1 for k in keys if k[2] == typ))
+                for typ in (0, 1))
+    return c_pad * (na * na * coeff_bytes + nh * 8 + nh * coeff_bytes)
+
+
+def modeled_seconds(C, La, nbits, coeff_bytes, model=COST_MODEL):
+    """The cost model's time of one apply with C channels at split La."""
+    na = 1 << La
+    nh = 1 << (nbits - La)
+    # planes fold into rows: (2*nh, na) @ (na, na), padded to the product
+    # tile; narrow channels underfill it
+    flops = C * max(2 * nh, model.tile) * max(na, model.tile) * na * 2
+    eff_rate = na / (na + model.halfwidth)
+    return (flops / (model.gemm_flops * eff_rate)
+            + (C * na * na * coeff_bytes + C * nh * na * 8) / model.hbm_bps
+            + (C / CHANNEL_BATCH) * model.step_s)
+
+
+def pick_split(groups, eff, nbits, budget, coeff_bytes, model=COST_MODEL):
+    """Choose La minimizing modeled apply time under the table budget.
+    Returns (modeled seconds, La, channels, table bytes) or None."""
+    best = None
+    for La in range(max(1, nbits // 2 - 3), nbits):
+        keys = _typed_channels_at(groups, eff, La)
+        table = table_bytes(keys, La, nbits, coeff_bytes)
+        if table > budget:
+            continue
+        t = modeled_seconds(len(keys), La, nbits, coeff_bytes, model)
+        if best is None or t < best[0]:
+            best = (t, La, len(keys), table)
+    return best
+
+
+def xor_dense_supported(plan):
+    """Whether the engine takes this plan: a square XOR-mode pair of
+    power-of-two dimension at least MIN_DIM, with more groups or terms than
+    the unrolled paths take (``plan.use_scan``)."""
+    from .. import config
+    if not getattr(config, 'use_xor_dense', True):
+        return False
+    if not plan.xor_mode or plan.dim_left != plan.dim_right:
+        return False
+    if not plan.use_scan:
+        return False  # few-mask operators keep the XOR kernel
+    if plan.dim_right < MIN_DIM:
+        return False
+    return (plan.dim_right & (plan.dim_right - 1)) == 0
+
+
+class XorDenseTables:
+    """The typed channels of one plan at a split La, on the host as lines
+    and on a device as the apply's tables (:meth:`on`).
+
+    * ``classes`` — per coefficient type present (0 real, 1 imaginary):
+      (type, keys), the channel keys (mh, sh, type) sorted;
+    * ``lines`` — per class: (channel, m_low, values) arrays, the nonzero
+      diagonals B[a, a ^ m_low] of each channel's matrix (float64);
+    * ``channels``, ``padded_channels``, ``table_bytes`` (the device tables
+      of ``config.real_dtype``).
+    """
+
+    def __init__(self, plan, eff, La, coeff_bytes):
+        nbits = plan.dim_right.bit_length() - 1
+        self.La = La
+        na = 1 << La
+        self.na = na
+        self.nh = 1 << (nbits - La)
+        amask = na - 1
+
+        # ---- host sums of the typed channel matrices, by line ----------
+        # (the JAX package's B[a, cols] += part * w, with each matrix's
+        # entries on the diagonal of its m_low kept as one line)
+        chan = {}
+        a = np.arange(na, dtype=np.int64)
+        for gi, (m, pm, signs, coeffs) in enumerate(plan.groups):
+            pm = int(pm)
+            mh, ml = pm >> La, pm & amask
+            for (s_eff, const_sign), c in zip(eff[gi], coeffs):
+                sh, sa = s_eff >> La, s_eff & amask
+                w = 1.0 - 2.0 * parity(a & sa)
+                for typ, part in ((0, (complex(c) * const_sign).real),
+                                  (1, (complex(c) * const_sign).imag)):
+                    if abs(part) <= _COEFF_TOL:
+                        continue
+                    lines = chan.setdefault((mh, sh, typ), {})
+                    line = lines.get(ml)
+                    if line is None:
+                        line = lines[ml] = np.zeros(na, dtype=np.float64)
+                    line += part * w
+
+        self.classes, self.lines = [], []
+        for typ in (0, 1):
+            keys = sorted(k for k in chan if k[2] == typ)
+            if not keys:
+                continue
+            ci, mls, vals = [], [], []
+            for i, key in enumerate(keys):
+                for ml, line in chan[key].items():
+                    ci.append(i)
+                    mls.append(ml)
+                    vals.append(line)
+            self.classes.append((typ, keys))
+            self.lines.append((np.asarray(ci, dtype=np.int64),
+                               np.asarray(mls, dtype=np.int64),
+                               np.stack(vals)))
+        self.channels = sum(len(keys) for _t, keys in self.classes)
+        self.padded_channels = sum(_padded(len(keys))
+                                   for _t, keys in self.classes)
+        self.table_bytes = table_bytes(
+            [k for _t, keys in self.classes for k in keys], La, nbits,
+            coeff_bytes)
+        self._on = {}
+
+    @property
+    def info(self):
+        """The split, channels and tables, as the JAX package's
+        ``xor_dense_info`` reports them, and the padded channels and torch
+        ops per apply."""
+        return {'La': self.La, 'channels': self.channels,
+                'padded_channels': self.padded_channels,
+                'table_bytes': self.table_bytes,
+                'torch_ops_per_apply': self.torch_ops_per_apply}
+
+    @property
+    def torch_ops_per_apply(self):
+        """Torch ops one apply runs, each one launch or more (the zeroed
+        output, then per batch a gather, a sign multiply and one product,
+        two in the imaginary class); only a profiler counts the launches."""
+        n = 1
+        for typ, keys in self.classes:
+            n += (len(keys) + CHANNEL_BATCH - 1) // CHANNEL_BATCH * (3 + typ)
+        return n
+
+    @property
+    def dense_flops(self):
+        """Float operations of the products per apply (padded channels
+        included, 2 per multiply-add, both planes)."""
+        return self.padded_channels * 2 * (2 * self.nh) * self.na * self.na
+
+    def on(self, dtype, device):
+        """The apply's tables in ``dtype`` on ``device``, built once: per
+        class (imaginary, Mt, ridx, wt, KB) with Mt (C_pad, na, na) the
+        transposed matrices B^T, and per batch its row gather ridx[b] of
+        nh * KB rows (row h, then channel) and signs wt[b] (nh, KB, 1)."""
+        key = (dtype, device)
+        if key in self._on:
+            return self._on[key]
+        na, nh = self.na, self.nh
+        a = torch.arange(na, dtype=torch.int64, device=device)
+        h = np.arange(nh, dtype=np.int64)
+        runs = []
+        for (typ, keys), (ci, mls, vals) in zip(self.classes, self.lines):
+            KB = min(CHANNEL_BATCH, len(keys))
+            c_pad = _padded(len(keys))
+            Mt = torch.zeros((c_pad, na, na), dtype=dtype, device=device)
+            for s in range(0, len(ci), _SCATTER_LINES):
+                sl = slice(s, s + _SCATTER_LINES)
+                c = torch.as_tensor(ci[sl], device=device)[:, None]
+                ml = torch.as_tensor(mls[sl], device=device)[:, None]
+                v = torch.as_tensor(vals[sl]).to(dtype).to(device)
+                # B[a, a ^ ml] = v[a], stored transposed
+                Mt[c, a[None, :] ^ ml, a[None, :]] = v
+            rowidx = np.tile(h, (c_pad, 1))
+            wh = np.zeros((c_pad, nh))
+            for i, (mh, sh, _t) in enumerate(keys):
+                rowidx[i] = h ^ mh
+                wh[i] = 1.0 - 2.0 * parity(h & sh)
+            nb = c_pad // KB
+            ridx = torch.as_tensor(
+                rowidx.reshape(nb, KB, nh).transpose(0, 2, 1).reshape(nb, -1)
+                .copy(), device=device)
+            wt = torch.as_tensor(
+                wh.reshape(nb, KB, nh).transpose(0, 2, 1)[..., None].copy(),
+                device=device).to(dtype)
+            runs.append((bool(typ), Mt, ridx, wt, KB))
+        self._on[key] = runs
+        return runs
+
+
+def build_xor_dense(plan, left, right):
+    """The engine's :class:`XorDenseTables` for a plan it supports, with
+    its tables built in ``config.real_dtype`` on ``config.device``; None
+    when it does not take the plan or no split fits the budget."""
+    from .. import config
+    from .xor_apply import _effective_sign_mask
+
+    if not xor_dense_supported(plan):
+        return None
+
+    nbits = plan.dim_right.bit_length() - 1
+    cb = torch.empty((), dtype=config.real_dtype).element_size()
+
+    # effective index-space sign masks (folds the Parity subspace bit)
+    eff = []
+    try:
+        for m, pm, signs, coeffs in plan.groups:
+            eff.append([_effective_sign_mask(int(s), int(m), left, right)
+                        for s in signs])
+    except TypeError:
+        return None
+
+    budget = ell_budget()
+    # manual override for tuning experiments (config.xor_dense_la)
+    La_cfg = getattr(config, 'xor_dense_la', None)
+    if La_cfg is not None:
+        La = int(La_cfg)
+        need = table_bytes(_typed_channels_at(plan.groups, eff, La), La,
+                           nbits, cb)
+        if need > budget:
+            raise ValueError(f'config.xor_dense_la = {La}: its tables take '
+                             f'{need} bytes, over config.ell_budget = '
+                             f'{budget}')
+    else:
+        pick = pick_split(plan.groups, eff, nbits, budget, cb)
+        if pick is None:
+            return None
+        La = pick[1]
+    tables = XorDenseTables(plan, eff, La, cb)
+    tables.on(config.real_dtype, config.device)
+    return tables
+
+
+def xor_dense_apply(x, tables):
+    """y = H x on (2, dim) planes through the channels of
+    :class:`XorDenseTables`, as torch ops on x's device and in x's dtype.
+    Counts one call in ``xor_dense_apply.applies``; it launches no kernel
+    of its own (the products are cuBLAS's)."""
+    nh, na = tables.nh, tables.na
+    xv = x.view(2, nh, na)
+    y = torch.zeros_like(x)
+    yv = y.view(2 * nh, na)
+    for imag, Mt, ridx, wt, KB in tables.on(x.dtype, x.device):
+        for b in range(ridx.shape[0]):
+            A = xv.index_select(1, ridx[b]).view(2, nh, KB, na)
+            A.mul_(wt[b])
+            Bt = Mt[b * KB:(b + 1) * KB].view(KB * na, na)
+            A = A.view(2, nh, KB * na)
+            if imag:
+                # y += i (B x): yr -= B xi, yi += B xr
+                yv[:nh].addmm_(A[1], Bt, alpha=-1)
+                yv[nh:].addmm_(A[0], Bt)
+            else:
+                yv.addmm_(A.view(2 * nh, KB * na), Bt)
+    xor_dense_apply.applies += 1
+    return y
+
+
+xor_dense_apply.applies = 0

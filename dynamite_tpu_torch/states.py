@@ -331,6 +331,11 @@ class State:
         data = cvec.mask_rows(self.data, keep)
         self.data = cvec.scale_real(data, 1.0 / float(cvec.norm(data)))
 
+    def entanglement_entropy(self, keep):
+        """Bipartite entanglement entropy, keeping the spins in ``keep``."""
+        from .computations import entanglement_entropy
+        return entanglement_entropy(self, keep)
+
     # -- vector algebra ----------------------------------------------------------
 
     def copy(self, result=None):

@@ -1,9 +1,11 @@
 """
 The port on a CUDA device: the hand-written XOR kernel against its plain
 PyTorch version on both routes (one device, and P virtual shards of one
-vector) and on XParity spaces, the sector engine against its plain version,
-Operator.dot / evolve / eigsolve through both, and the distributed path on
-NCCL when the machine has two GPUs or more.
+vector) and on XParity spaces, the sector and XOR-dense engines against
+their plain versions, Operator.dot / evolve / eigsolve through them, the
+RDM's device route and the entropy on the card against the host routes,
+memory tracking, and the distributed path on NCCL when the machine has two
+GPUs or more.
 
 Every test here needs a card (marker ``cuda``) and skips without one. The
 file imports no JAX, so it runs on a machine without it, from the root of
@@ -343,6 +345,75 @@ def test_sector_evolve_and_eigsolve_on_card(card, space):
     evals = eigsolve(H, nev=2)
     exact = np.linalg.eigvalsh(H.to_numpy().toarray())[:2]
     assert np.allclose(evals[:2], exact, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('space', ['full', 'even'])
+def test_xor_dense_vs_plain_on_card(card, space, dtype):
+    """The XOR-dense engine on the card against its plain version (the XOR
+    kernel's on-the-fly sweep) and the numpy oracle: syk(12) (10,626 terms)
+    on Full(12) and syk(11) (7,315 terms) on Parity(13) even, both of
+    dimension 4096 and past the XOR kernel's shared-memory tables."""
+    from dynamite_tpu_torch.ops.xor_apply import XorTables
+    from dynamite_tpu_torch.ops.xor_dense import xor_dense_apply
+    sub = subspaces.Full(L=12) if space == 'full' else \
+        subspaces.Parity('even', L=13)
+    H = models.syk(12 if space == 'full' else 11)
+    H.add_subspace(sub)
+    kernel = H.get_mat()
+    assert kernel.xor_dense is not None and kernel.tables is None
+    x = torch.from_numpy(_planes(sub.get_dimension(), seed=6)).to(card, dtype)
+    before = xor_dense_apply.applies
+    y = kernel.apply(x)
+    assert xor_dense_apply.applies == before + 1
+    want = xor_apply_reference(x, XorTables(kernel.plan, sub))
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((y - want).abs().max() / want.abs().max()) <= tol
+    v = x.double().cpu().numpy()
+    oracle = H.to_numpy() @ (v[0] + 1j * v[1])
+    got = y.double().cpu().numpy()
+    assert np.max(np.abs(got[0] + 1j * got[1] - oracle)) <= \
+        tol * np.max(np.abs(oracle))
+
+
+@pytest.mark.parametrize('space', ['full', 'odd', 'sc'])
+def test_rdm_and_entropy_on_card(card, space):
+    """The RDM's device route against the host route, and the entropy
+    taken on the card against the dm_* route, on Full(12), Parity(12) odd
+    and SpinConserve(12, 6), for a half cut, an uneven one and a scattered
+    one."""
+    from dynamite_tpu_torch.computations import (dm_entanglement_entropy,
+                                                 entanglement_entropy,
+                                                 reduced_density_matrix,
+                                                 renyi_entropy,
+                                                 dm_renyi_entropy)
+    from dynamite_tpu_torch.ops.rdm import rdm_host
+    sub = {'full': lambda: subspaces.Full(L=12),
+           'odd': lambda: subspaces.Parity('odd', L=12),
+           'sc': lambda: subspaces.SpinConserve(12, 6)}[space]()
+    v = _planes(sub.get_dimension(), seed=7)
+    psi = State(subspace=sub)
+    psi.set_planes(v)
+    assert psi.data.device.type == 'cuda'
+    for keep in (tuple(range(6)), tuple(range(4)), (0, 3, 5, 8, 11)):
+        rho = reduced_density_matrix(psi, keep)
+        assert np.max(np.abs(rho - rdm_host(psi, keep))) <= 1e-12
+        assert abs(entanglement_entropy(psi, keep)
+                   - dm_entanglement_entropy(rho)) <= 1e-10
+        assert abs(renyi_entropy(psi, keep, 2)
+                   - dm_renyi_entropy(rho, 2)) <= 1e-10
+
+
+def test_memory_usage_grows_on_card(card):
+    from dynamite_tpu_torch import tools
+    assert tools.track_memory()
+    before = tools.get_memory_usage(group_by='rank')
+    x = torch.ones(1 << 26, dtype=torch.float32, device=card)  # 0.27 GB
+    after = tools.get_memory_usage(group_by='rank')
+    assert after >= before + 0.26
+    assert tools.get_memory_usage(max_usage=True) >= after
+    del x
+    assert tools.get_memory_usage() < after
 
 
 def test_distributed_dot_on_nccl(card, tmp_path):

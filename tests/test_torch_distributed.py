@@ -30,6 +30,17 @@ L = 8
 SPACES = {'full': ('localized', None), 'even': ('heisenberg', 'even')}
 
 
+@pytest.fixture(autouse=True)
+def cpu_device():
+    """The port's operators built here run on the CPU, which the port uses
+    only when asked (the rank processes ask for their own device)."""
+    from dynamite_tpu_torch import config
+    saved = config._device
+    config.device = 'cpu'
+    yield
+    config._device = saved
+
+
 def _model(pkg, space):
     """The case's operator and subspace in one package (the port or the
     JAX reference): localized(8) on Full, heisenberg(9) on Parity even —
@@ -125,6 +136,25 @@ def test_dot_norms_and_states(space, world, tmp_path):
     product = np.load(tmp_path / 'product.npy')
     assert np.flatnonzero(product).tolist() == [idx]
     assert product[idx] == 1
+
+
+def test_rdm_gathered_to_rank0(tmp_path):
+    """The RDM and entropy of a state whose rows lie on 2 ranks: rank 0
+    computes them from the gathered rows, and every rank gets its result."""
+    from dynamite_tpu_torch.computations import dm_entanglement_entropy
+    from dynamite_tpu_torch.ops.rdm import rdm_from_full_vector
+    H, sub = _model('dynamite_tpu_torch', 'even')
+    v = _planes(sub.get_dimension(), seed=4)
+    np.save(tmp_path / 'v.npy', v)
+    recs = _spawn('rdm', 2, tmp_path)
+
+    full = np.zeros(1 << sub.L, dtype=np.complex128)
+    full[sub.idx_to_state(np.arange(sub.get_dimension()))] = v[0] + 1j * v[1]
+    want = rdm_from_full_vector(full, (0, 2, 5), sub.L)
+    assert np.max(np.abs(np.load(tmp_path / 'rho.npy') - want)) < 1e-12
+    assert recs[0]['entropy'] == pytest.approx(
+        dm_entanglement_entropy(want), abs=1e-12)
+    assert all(r == recs[0] for r in recs)
 
 
 @pytest.mark.parametrize('world', [2, 4])
@@ -266,6 +296,15 @@ def _rank_main(case, rank, world, store, out_dir, device):
         sums = multihost.allgather_host_values(np.array([local]))
         save('product_local.npy', sums[:, 0])
         save('product.npy', prod.to_numpy().real)
+    elif case == 'rdm':
+        from dynamite_tpu_torch import computations
+        H, sub = _model('dynamite_tpu_torch', 'even')
+        psi = state(sub, load('v.npy'))
+        rho = computations.reduced_density_matrix(psi, (0, 2, 5))
+        save('rho.npy', rho)
+        rec['rho_digest'] = float(np.abs(rho).sum())
+        rec['entropy'] = float(computations.entanglement_entropy(psi,
+                                                                (0, 2, 5)))
     elif case == 'evolve':
         from dynamite_tpu_torch import computations
         H, sub = _model('dynamite_tpu_torch', 'full')

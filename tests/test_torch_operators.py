@@ -36,6 +36,9 @@ L = 8
 
 @pytest.fixture(autouse=True)
 def reset_config():
+    # the port runs on the card unless asked for the CPU
+    saved_device = config._device
+    config.device = 'cpu'
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
@@ -43,6 +46,7 @@ def reset_config():
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
+    config._device = saved_device
 
 
 def _expressions(m):

@@ -47,6 +47,9 @@ LAYOUTS = [(1, 0), (2, 1), (5, 2), (10, 3), (12, 6), (14, 7)]
 
 @pytest.fixture(autouse=True)
 def reset_config():
+    # the port runs on the card unless asked for the CPU
+    saved_device = config._device
+    config.device = 'cpu'
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
@@ -54,6 +57,7 @@ def reset_config():
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
+    config._device = saved_device
 
 
 @pytest.fixture

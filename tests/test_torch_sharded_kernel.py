@@ -47,6 +47,9 @@ CASES = [('localized', 13, 'full'), ('heisenberg', 14, 'even'),
 @pytest.fixture(autouse=True)
 def reset_config():
     saved = ref_config.mesh
+    # the port runs on the card unless asked for the CPU
+    saved_device = config._device
+    config.device = 'cpu'
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
@@ -55,6 +58,7 @@ def reset_config():
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
+    config._device = saved_device
 
 
 def _sub(pkg, L, space):

@@ -49,6 +49,9 @@ def reset_config():
     """Fresh configs, and numpy's BLAS at one thread like torch: the dense
     eigvalsh oracles would otherwise run on every core (ROADMAP.md queue
     3)."""
+    # the port runs on the card unless asked for the CPU
+    saved_device = config._device
+    config.device = 'cpu'
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
@@ -57,6 +60,7 @@ def reset_config():
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
+    config._device = saved_device
 
 
 @pytest.fixture

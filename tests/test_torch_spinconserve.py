@@ -46,6 +46,9 @@ L = 6
 def reset_config():
     """Fresh configs, and numpy's BLAS at one thread like torch (ROADMAP.md
     queue 3)."""
+    # the port runs on the card unless asked for the CPU
+    saved_device = config._device
+    config.device = 'cpu'
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
@@ -54,6 +57,7 @@ def reset_config():
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
+    config._device = saved_device
 
 
 def _rel(got, want):

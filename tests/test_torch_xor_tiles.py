@@ -58,6 +58,9 @@ SMALL_TILES = [(4, 4), (3, 2), (2, 1)]
 
 @pytest.fixture(autouse=True)
 def reset_config():
+    # the port runs on the card unless asked for the CPU
+    saved_device = config._device
+    config.device = 'cpu'
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
@@ -65,6 +68,7 @@ def reset_config():
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
+    config._device = saved_device
 
 
 def _random_msc(n_diag, seed):
