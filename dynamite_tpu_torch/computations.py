@@ -16,11 +16,15 @@ import time
 from contextlib import contextmanager
 
 import numpy as np
+import torch
 
 from . import config
-from .solvers.expmv import expmv, initial_tstep
+from .ops import msc as msc_tools
 from .solvers.eigs import eigsolve_trlanczos, ritz_vectors
-from .solvers.krylov import check_workspace_fits
+from .solvers.expmv import expmv, initial_tstep
+from .solvers.krylov import (KrylovOps, check_workspace_fits, combine, gram,
+                             host)
+from .solvers.minres import minres_solver
 
 DEFAULT_NCV_EVOLVE = 30
 
@@ -98,12 +102,20 @@ def evolve(H, state, t, result=None, tol=None, ncv=None, algo=None,
 
 
 def eigsolve(H, getvecs=False, nev=1, which='lowest', target=None, tol=None,
-             subspace=None, max_its=None, ncv=None):
+             subspace=None, max_its=None, ncv=None, target_method=None,
+             inner_its=None, inner_tol=None):
     r"""Solve for a subset of the Hamiltonian's eigenpairs.
 
     Parameters mirror the reference (computations.py:128-292). ``which`` is
-    one of 'lowest', 'highest' or 'exterior'. Interior eigenvalues
-    (``target=``) are not ported yet.
+    one of 'lowest', 'highest', 'exterior', or 'target' (with ``target``
+    set).
+
+    For interior eigenvalues (``target=``), ``target_method`` selects the
+    matrix-free strategy: 'shift_invert' (default: Lanczos on
+    (H-target)^{-1}, each apply an inner MINRES solve bounded by
+    ``inner_its`` and ``inner_tol``) or 'fold' (Lanczos on (H-target)^2, no
+    inner solve but a squared condition number). See
+    :func:`_eigsolve_target`.
     """
     H.establish_L()
 
@@ -122,12 +134,19 @@ def eigsolve(H, getvecs=False, nev=1, which='lowest', target=None, tol=None,
                       DeprecationWarning, stacklevel=2)
         which = {'smallest': 'lowest', 'largest': 'highest'}[which]
 
-    if target is not None or which == 'target':
-        raise NotImplementedError('interior eigenvalues (target=) are not '
-                                  'ported yet (ROADMAP.md queue 1, item 11)')
+    if target is not None:
+        which = 'target'
+    elif which == 'target':
+        raise ValueError("which='target' requires the target "
+                         'parameter')
 
     kernel = H.get_mat(subspaces=(subspace, subspace))
     dim = subspace.get_dimension()
+
+    if which == 'target':
+        return _eigsolve_target(H, dim, nev, target, tol, getvecs, max_its,
+                                ncv, subspace, target_method, inner_its,
+                                inner_tol)
 
     if ncv is None:
         ncv = min(dim - 1 if dim > 2 else dim, max(2 * nev + 10, 20))
@@ -148,15 +167,265 @@ def eigsolve(H, getvecs=False, nev=1, which='lowest', target=None, tol=None,
 
     if not getvecs:
         return np.asarray(evals, dtype=float)
+    return np.asarray(evals, dtype=float), _ritz_states(H, subspace, S, V)
 
+
+def _eigsolve_target(H, dim, nev, target, tol, getvecs, max_its, ncv,
+                     subspace, method, inner_its, inner_tol):
+    """Interior eigenvalues near ``target``.
+
+    The reference does this with SLEPc shift-invert and a MUMPS direct
+    solve, which it refuses for matrix-free (shell) operators. Here every
+    operator is matrix-free, so the inverse is applied iteratively
+    (method='shift_invert': outer Lanczos on (H-target)^{-1}, each apply
+    an inner MINRES solve), or avoided (method='fold': Lanczos on
+    (H-target)^2, whose lowest eigenvalues are the ones closest to the
+    target; robust, but it squares the condition number, so it needs far
+    more iterations on dense mid-spectrum problems).
+
+    Both methods produce nev + 4 candidate states; the eigenpairs come from
+    a Rayleigh-Ritz step on H itself, so the returned eigenvalues are
+    accurate even when the inner solves are loose.
+
+    ``last_solve_stats`` is filled as the solve goes, so a solve that
+    raises (``MaxIterationsError``) leaves its counters there: the outer
+    applies and restarts, the MINRES solves and iterations, the extract's
+    applies, ``matvecs`` (every H apply: the MINRES iterations, or the
+    folded applies, plus the extract's) and the host syncs.
+    """
+    if method is None:
+        method = 'shift_invert'
+    if method not in ('shift_invert', 'fold'):
+        raise ValueError("target_method must be 'shift_invert' or 'fold' "
+                         f'(got {method!r})')
+
+    nev_f = min(dim, nev + 4)
+    if ncv is None:
+        if method == 'fold':
+            ncv = min(dim - 1 if dim > 2 else dim, max(2 * nev_f + 25, 40))
+        else:
+            ncv = min(dim - 1 if dim > 2 else dim, max(2 * nev_f + 10, 20))
+    ncv = min(ncv, dim)
+    dtype = config.real_dtype
+    device = config.device
+    check_workspace_fits(dim, ncv, device, dtype, 'eigsolve')
+
+    global last_solve_stats
+    outer, inner, extract = {}, {}, {}
+    last_solve_stats = stats = {'method': method}
+    try:
+        with _phase(stats, 'candidates_s'):
+            if method == 'shift_invert':
+                states = _target_candidates_shift_invert(
+                    H, dim, nev_f, target, tol, max_its, ncv, subspace,
+                    dtype, device, inner_its, inner_tol, outer, inner)
+            else:
+                states = _target_candidates_fold(
+                    H, dim, nev_f, target, tol, max_its, ncv, subspace,
+                    dtype, device, outer)
+        with _phase(stats, 'extract_s'):
+            return _rayleigh_ritz_extract(H, states, target, nev, getvecs,
+                                          stats=extract)
+    finally:
+        stats.update(_target_stats(method, outer, inner, extract))
+
+
+def _target_stats(method, outer, inner, extract):
+    """The flat ``last_solve_stats`` of a target solve from its parts."""
+    outer_applies = outer.get('matvecs', 0)
+    minres_its = inner.get('iterations', 0)
+    return {
+        'outer_applies': outer_applies,
+        'restarts': outer.get('restarts', 0),
+        'verify_cycles': outer.get('verify_cycles', 0),
+        'outer_residual_estimate': outer.get('residual_estimate'),
+        'minres_solves': inner.get('solves', 0),
+        'minres_iterations': minres_its,
+        'minres_max_iterations': inner.get('max_iterations', 0),
+        'minres_max_rel_residual': inner.get('max_rel_residual'),
+        'extract_applies': extract.get('applies', 0),
+        'matvecs': (minres_its if method == 'shift_invert'
+                    else outer_applies) + extract.get('applies', 0),
+        'host_syncs': (outer.get('host_syncs', 0) + inner.get('host_syncs', 0)
+                       + extract.get('host_syncs', 0)),
+    }
+
+
+def _target_candidates_shift_invert(H, dim, nev_f, target, tol, max_its,
+                                    ncv, subspace, dtype, device, inner_its,
+                                    inner_tol, outer, inner):
+    """Candidate states from Lanczos on (H - target)^{-1}: the largest-
+    magnitude eigenvalues of the inverse are the ones closest to the
+    target, so O(10) outer iterations suffice, at the price of an inner
+    MINRES solve per outer apply. ``outer`` and ``inner`` collect the
+    Lanczos and MINRES counters."""
+    if inner_its is None:
+        # the JAX package's default cap; mid-spectrum at large dimension it
+        # returns an inexact inverse (ROADMAP.md queue 3)
+        inner_its = min(2 * dim, 2000)
+    if inner_tol is None:
+        inner_tol = 1e-10 if dtype == torch.float64 else 1e-5
+    # the outer residual tolerance lives on the (H-target)^{-1} eigenvalue
+    # scale; the final accuracy comes from the Rayleigh-Ritz step on H
+    outer_tol = tol if tol is not None else \
+        (1e-8 if dtype == torch.float64 else 1e-5)
+
+    kernel = H.get_mat(subspaces=(subspace, subspace))
+    inverse_apply = minres_solver(kernel.apply, shift=float(target),
+                                  maxiter=inner_its, rtol=inner_tol,
+                                  stats=inner)
+    _theta, S, V = eigsolve_trlanczos(
+        KrylovOps(inverse_apply, ncv), dim, dtype, device, nev=nev_f,
+        which='exterior', tol=outer_tol, max_restarts=max_its, stats=outer)
+    return _ritz_states(H, subspace, S, V)
+
+
+def _folded_msc(H, target):
+    """The MSC of (H - target)^2, built symbolically: squaring leaves exact
+    cancellations as ~1e-17 float residue, dropped below 1e-12 of the
+    largest coefficient so that the conservation check still sees H's
+    symmetry."""
+    H.reduce_msc()
+    shifted = msc_tools.msc_sum(
+        [H.msc, msc_tools.msc_from_arrays([0], [0], [-target])])
+    folded = msc_tools.combine_terms(msc_tools.msc_product([shifted, shifted]))
+    if len(folded):
+        folded = msc_tools.truncate(
+            folded, 1e-12 * float(np.abs(folded['coeffs']).max()))
+    return folded
+
+
+def _target_candidates_fold(H, dim, nev_f, target, tol, max_its, ncv,
+                            subspace, dtype, device, outer):
+    """Candidate states from Lanczos on the folded operator (H - target)^2,
+    which runs through the same engines as H (the XOR kernel on Full and
+    Parity). ``outer`` collects the Lanczos counters."""
+    from .operators import Operator
+
+    folded_msc = _folded_msc(H, target)
+    folded = Operator(msc=folded_msc)
+    folded._subspaces = list(H.get_subspace_list())
+    folded.allow_projection = H.allow_projection
+    fkernel = folded.get_mat(subspaces=(subspace, subspace))
+
+    # folding squares the condition number, so tight residuals on
+    # (H-target)^2 are unreachable; a loose outer tolerance is enough
+    # because the Rayleigh-Ritz step on H itself recovers the accuracy
+    fold_tol = tol if tol is not None else \
+        (1e-6 if dtype == torch.float64 else 1e-4)
+    scale = float(np.sum(np.abs(folded_msc['coeffs']))) \
+        if len(folded_msc) else 1.0
+
+    _evals_sq, S, V = eigsolve_trlanczos(
+        fkernel.krylov_ops(ncv), dim, dtype, device, nev=nev_f,
+        which='lowest', tol=fold_tol, max_restarts=max_its, stats=outer,
+        tol_scale=scale)
+    return _ritz_states(H, subspace, S, V)
+
+
+def _ritz_states(H, subspace, S, V):
+    """The Ritz vectors sum_k S[k, i] V[k] as States."""
     from .states import State
-    evecs = []
+    states = []
     for vec in ritz_vectors(S, V):
         v = State(L=H.L, subspace=subspace)
         v.data = vec
         v.set_initialized()
-        evecs.append(v)
-    return np.asarray(evals, dtype=float), evecs
+        states.append(v)
+    return states
+
+
+def _streamed_grams(kernel, V, stats):
+    """The Rayleigh-Ritz Grams over the basis b = (V, W), W = H V, for the
+    (n, 2, dim) candidates V: A = <b_k|H b_l> and B = <b_k|b_l>, as host
+    complex128 (2n, 2n) arrays, and W. Each z_j = H w_j is reduced into
+    column j of V^H HW and W^H HW and dropped, so 2n + 1 vectors are held at
+    once; one host fetch for every product. Adds ``applies`` and
+    ``host_syncs`` to ``stats``."""
+    n = V.shape[0]
+    W = torch.empty_like(V)
+    for j in range(n):
+        W[j] = kernel.apply(V[j])
+    VZ, WZ = ([], []), ([], [])
+    for j in range(n):
+        z = kernel.apply(W[j])[None]
+        for cols, X in ((VZ, V), (WZ, W)):
+            re, im = gram(X, z)
+            cols[0].append(re[:, 0])
+            cols[1].append(im[:, 0])
+        del z
+    parts = [gram(V, V), gram(V, W), gram(W, V), gram(W, W),
+             [torch.stack(c, dim=1) for c in VZ],
+             [torch.stack(c, dim=1) for c in WZ]]
+    flat = host(torch.stack([p for pair in parts for p in pair]))
+    VV, VW, WV, WW, VZ, WZ = (flat[2 * k] + 1j * flat[2 * k + 1]
+                              for k in range(6))
+    stats['applies'] = stats.get('applies', 0) + 2 * n
+    stats['host_syncs'] = stats.get('host_syncs', 0) + 1
+    return (np.block([[VW, VZ], [WW, WZ]]), np.block([[VV, VW], [WV, WW]]),
+            W)
+
+
+def _rayleigh_ritz_extract(H, states, target, nev, getvecs, stats=None):
+    """Rayleigh-Ritz of H within span{v_i, H v_i} of the n candidate
+    states; returns the nev eigenvalues closest to the target (and the
+    vectors, with ``getvecs``).
+
+    The basis is enriched with H v_i because the shift-invert and folded
+    operators have *degenerate* wanted eigenvalues whenever the target sits
+    mid-gap (the pair equidistant from it folds onto one eigenvalue), and a
+    single Lanczos sequence returns only one mixed vector per degenerate
+    level; H separates the mixture, so the enriched span holds both.
+
+    The JAX package's Grams, entry for entry (:func:`_streamed_grams`).
+    The candidates move into one (n, 2, dim) tensor V, each State then
+    viewing its row, so their old storage is freed; with W = H V and one
+    z = H w at a time, the extract holds 2n + 1 vectors (the nev
+    eigenvectors it returns come on top). The reduced problem is solved on
+    the host with the JAX package's canonical-orthogonalization cut.
+    ``stats`` collects ``applies`` and ``host_syncs``.
+    """
+    if stats is None:
+        stats = {}
+    subspace = states[0].subspace
+    n = len(states)
+    V = torch.empty((n,) + tuple(states[0].data.shape),
+                    dtype=states[0].data.dtype, device=states[0].data.device)
+    for i, state in enumerate(states):
+        V[i] = state.data
+        state.data = V[i]
+    A, B, W = _streamed_grams(H.get_mat(subspaces=(subspace, subspace)), V,
+                              stats)
+
+    # canonical orthogonalization: drop the near-null directions of the
+    # (generally rank-deficient) enriched basis, then a standard Hermitian
+    # eigenproblem in the reduced space
+    s, U = np.linalg.eigh((B + B.conj().T) / 2)
+    keep = s > max(1e-10 * s.max(), 0)
+    T = U[:, keep] / np.sqrt(s[keep])
+    A_r = T.conj().T @ ((A + A.conj().T) / 2) @ T
+    theta, C_r = np.linalg.eigh((A_r + A_r.conj().T) / 2)
+    C = T @ C_r
+
+    order = np.argsort(np.abs(theta - target))[:nev]
+    evals = np.asarray(theta[order], dtype=float)
+    if not getvecs:
+        return evals
+
+    from .states import State
+    evecs = []
+    for idx in order:
+        c = torch.as_tensor(C[:, idx], device=V.device)
+        cr = c.real.to(V.dtype)
+        ci = c.imag.to(V.dtype)
+        out = State(L=H.L, subspace=subspace)
+        out.data = combine(V, cr[:n], ci[:n])
+        out.data += combine(W, cr[n:], ci[n:])
+        out.set_initialized()
+        out.normalize()
+        stats['host_syncs'] = stats.get('host_syncs', 0) + 1
+        evecs.append(out)
+    return evals, evecs
 
 
 def _check_keep(state, keep):

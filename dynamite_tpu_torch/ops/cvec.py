@@ -7,8 +7,8 @@ so that the Krylov code ports line for line and the tests compare like with
 like. Scalars come back as 0-d tensors; callers convert with ``float``.
 
 With a process group up, each rank holds its rows of every vector, and the
-reductions (:func:`vdot`, :func:`norm_squared`, :func:`norm`) take this
-rank's part, then sum over ranks in one device all-reduce.
+reductions (:func:`vdot`, :func:`rdot`, :func:`norm_squared`, :func:`norm`)
+take this rank's part, then sum over ranks in one device all-reduce.
 """
 
 import numpy as np
@@ -26,6 +26,12 @@ def vdot(x, y):
     if multihost.world_size() > 1:
         re, im = multihost.allreduce_sum_(torch.stack([re, im]))
     return re, im
+
+
+def rdot(x, y):
+    """sum(x * y) over both planes: the real inner product of the planes as
+    one real vector (the real part of <x|y>). A 0-d tensor."""
+    return multihost.allreduce_sum_(torch.dot(x.reshape(-1), y.reshape(-1)))
 
 
 def norm_squared(x):

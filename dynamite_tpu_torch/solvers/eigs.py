@@ -113,6 +113,9 @@ def eigsolve_trlanczos(kops, dim, dtype, device, nev=1, which='lowest',
         scale = np.maximum(np.abs(theta),
                            tol_scale if tol_scale is not None else 1e-30)
         converged = resid <= tol * scale
+        # the largest relative residual estimate of the wanted pairs at the
+        # last check (what a solve that runs out of restarts leaves)
+        stats['residual_estimate'] = float(np.max(resid[:nev] / scale[:nev]))
 
         if np.all(converged[:nev]):
             nconv = nev

@@ -49,17 +49,23 @@ def check_workspace_fits(dim, ncv, device, dtype, context):
             RuntimeWarning, stacklevel=3)
 
 
+def gram(X, Y):
+    """Complex inner products <X_k | Y_l> for the rows of X (p, 2, dim) and
+    Y (q, 2, dim), as one skinny matmul. Returns (re, im) of shape (p, q).
+    With a process group up, the (p, 2, q, 2) block is summed over ranks in
+    one device all-reduce."""
+    p, q = X.shape[0], Y.shape[0]
+    G = (X.reshape(p * 2, X.shape[-1]) @ Y.reshape(q * 2, Y.shape[-1]).T
+         ).reshape(p, 2, q, 2)
+    multihost.allreduce_sum_(G)
+    return (G[:, 0, :, 0] + G[:, 1, :, 1], G[:, 0, :, 1] - G[:, 1, :, 0])
+
+
 def _basis_dots(V, w):
     """Complex inner products <V_k | w> for every row k of V.
-    V: (n, 2, dim); w: (2, dim). Returns (re, im) of shape (n,). With a
-    process group up, the (n, 2, 2) block is summed over ranks in one
-    device all-reduce."""
-    n = V.shape[0]
-    D = (V.reshape(n * 2, V.shape[-1]) @ w.T).reshape(n, 2, 2)
-    multihost.allreduce_sum_(D)
-    re = D[:, 0, 0] + D[:, 1, 1]
-    im = D[:, 0, 1] - D[:, 1, 0]
-    return re, im
+    V: (n, 2, dim); w: (2, dim). Returns (re, im) of shape (n,)."""
+    re, im = gram(V, w[None])
+    return re[:, 0], im[:, 0]
 
 
 def combine(V, cr, ci):

@@ -4,8 +4,9 @@ PyTorch version on both routes (one device, and P virtual shards of one
 vector) and on XParity spaces, the sector and XOR-dense engines against
 their plain versions, Operator.dot / evolve / eigsolve through them, the
 RDM's device route and the entropy on the card against the host routes,
-memory tracking, and the distributed path on NCCL when the machine has two
-GPUs or more.
+the MINRES inner solve and eigsolve(target=) against the same calls on the
+CPU, memory tracking, and the distributed path on NCCL when the machine has
+two GPUs or more.
 
 Every test here needs a card (marker ``cuda``) and skips without one. The
 file imports no JAX, so it runs on a machine without it, from the root of
@@ -402,6 +403,60 @@ def test_rdm_and_entropy_on_card(card, space):
                    - dm_entanglement_entropy(rho)) <= 1e-10
         assert abs(renyi_entropy(psi, keep, 2)
                    - dm_renyi_entropy(rho, 2)) <= 1e-10
+
+
+def _on_cpu(fn):
+    """fn() with the port's states on the CPU (the kernel's plain version),
+    the card's default restored after."""
+    saved = config._device
+    config.device = 'cpu'
+    try:
+        return fn()
+    finally:
+        config._device = saved
+
+
+def test_minres_on_card_matches_cpu(card):
+    """The MINRES inner solve through the XOR kernel on the card against
+    the same solve on the CPU (the kernel's plain version), float64."""
+    from dynamite_tpu_torch.solvers.minres import minres_solver
+    H = models.localized(12)
+    H.add_subspace(subspaces.Full(L=12))
+    kernel = H.get_mat()
+    b = _planes(1 << 12, seed=4)
+    shift = -(H._infinity_norm_host() + 1.0)  # below the spectrum
+
+    def solve(device):
+        stats = {}
+        x = minres_solver(kernel.apply, shift=shift, maxiter=300, rtol=1e-10,
+                          stats=stats)(torch.tensor(b, device=device))
+        return x.cpu().numpy(), stats
+
+    before = xor_apply_sharded.launches
+    got, stats = solve(card)
+    assert xor_apply_sharded.launches - before == stats['iterations'] > 0
+    want, _ = solve('cpu')
+    assert np.max(np.abs(got - want)) <= 1e-10 * np.max(np.abs(want))
+
+
+def test_target_eigsolve_on_card_matches_cpu(card):
+    """eigsolve(target=) by shift-invert near the spectrum's edge, float64,
+    on the card (the XOR kernel once per counted matvec) against the same
+    solve on the CPU and against scipy's eigsh, to 1e-10."""
+    from dynamite_tpu_torch import computations
+    H = models.localized(12)
+    H.add_subspace(subspaces.Full(L=12))
+    exact = np.sort(scipy.sparse.linalg.eigsh(
+        H.to_numpy(), k=6, which='SA', return_eigenvectors=False))
+    target = float(0.7 * exact[3] + 0.3 * exact[4])
+    before = xor_apply_sharded.launches
+    got = np.sort(eigsolve(H, nev=2, target=target))
+    stats = computations.last_solve_stats
+    assert xor_apply_sharded.launches - before >= stats['matvecs'] > 0
+    want = np.sort(_on_cpu(lambda: eigsolve(H, nev=2, target=target)))
+    assert np.allclose(got, want, rtol=1e-10, atol=0)
+    nearest = np.sort(exact[np.argsort(np.abs(exact - target))[:2]])
+    assert np.allclose(got, nearest, rtol=1e-10, atol=0)
 
 
 def test_memory_usage_grows_on_card(card):

@@ -211,6 +211,26 @@ def test_eigsolve(world, tmp_path):
     assert np.allclose(got[:2], want[:2], rtol=1e-10, atol=0)
 
 
+def test_target_eigsolve(tmp_path):
+    """eigsolve(target=) by MINRES shift-invert on 2 ranks: the inner
+    solves' reductions and the extract's Grams are summed over ranks, so
+    the pair equals one process's to 1e-10, every rank takes the same
+    decisions, and the eigenvectors' residuals stay below 1e-8."""
+    H, sub = _model('dynamite_tpu_torch', 'full')
+    exact = np.linalg.eigvalsh(H.to_numpy().toarray())
+    target = float(0.7 * exact[2] + 0.3 * exact[3])
+    np.save(tmp_path / 'target.npy', np.array([target]))
+    recs = _spawn('target', 2, tmp_path)
+    one = np.sort(H.eigsolve(nev=2, target=target))
+    got = np.sort(recs[0]['evals'])
+    assert np.allclose(got, one, rtol=1e-10, atol=0)
+    assert np.allclose(got, np.sort(exact[np.argsort(np.abs(exact - target))
+                                          [:2]]), rtol=1e-10, atol=0)
+    assert max(recs[0]['residuals']) < 1e-8
+    assert recs[0]['stats']['minres_iterations'] > 0
+    assert all(r == recs[0] for r in recs)
+
+
 @pytest.mark.parametrize('world', [2, 4])
 def test_operator_differing_by_rank_raises(world, tmp_path):
     recs = _spawn('crc', world, tmp_path)
@@ -322,6 +342,19 @@ def _rank_main(case, rank, world, store, out_dir, device):
             r = H.dot(v)
             r.axpy(-lam, v)
             rec['residuals'].append(r.norm() / abs(lam))
+        rec['stats'] = {k: v for k, v in computations.last_solve_stats.items()
+                        if not k.endswith('_s')}
+    elif case == 'target':
+        from dynamite_tpu_torch import computations
+        H, sub = _model('dynamite_tpu_torch', 'full')
+        target = float(load('target.npy')[0])
+        evals, evecs = H.eigsolve(nev=2, target=target, getvecs=True)
+        rec['evals'] = [float(e) for e in evals]
+        rec['residuals'] = []
+        for lam, v in zip(evals, evecs):
+            r = H.dot(v)
+            r.axpy(-lam, v)
+            rec['residuals'].append(r.norm())
         rec['stats'] = {k: v for k, v in computations.last_solve_stats.items()
                         if not k.endswith('_s')}
     elif case == 'crc':

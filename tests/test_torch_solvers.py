@@ -185,9 +185,16 @@ def test_eigsolve_vs_reference_and_eigvalsh(model, space, which, nev):
 
 
 def test_eigsolve_target_not_ported():
+    """target= is ported (tests/test_torch_target.py holds it against the
+    JAX package): near the spectrum's edge at L=10 it gives eigvalsh's two
+    levels nearest the target."""
     H = models.localized(L)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        eigsolve(H, target=0.0)
+    exact = _exact_spectrum('localized', 'full')
+    target = float(0.7 * exact[1] + 0.3 * exact[2])
+    evals = eigsolve(H, nev=2, target=target)
+    nearest = exact[np.argsort(np.abs(exact - target))[:2]]
+    assert np.allclose(np.sort(evals), np.sort(nearest), rtol=1e-10,
+                       atol=1e-12)
 
 
 def test_single_precision_evolve_and_eigsolve(single_precision):
