@@ -6,12 +6,14 @@ built for sm_90a).
     python3 chip_smoke.py
 
 Runs from the root of a checkout, builds the XOR matvec kernel from
-``dynamite_tpu_torch/csrc/xor_apply.cu`` at first use, and drives the port's
-main paths at L=24 with the random-field Heisenberg chain: on Full(24) (dim
-2**24) through the kernel, and in the half-filling sector SpinConserve(24,
-12) (dim 2,704,156) through the sector engine:
+``dynamite_tpu_torch/csrc/xor_apply.cu`` and the ELL kernel from
+``dynamite_tpu_torch/csrc/ell_apply.cu`` (one nvcc each, started together),
+and drives the port's main paths at L=24 with the random-field Heisenberg
+chain: on Full(24) (dim 2**24) through the XOR kernel, in the half-filling
+sector SpinConserve(24, 12) (dim 2,704,156) through the sector engine, and
+on the same sector discovered by Auto through the ELL kernel:
 
-1. environment: torch/CUDA versions, the card, its power limit, build time,
+1. environment: torch/CUDA versions, the card, its power limit, build times,
    ptxas registers and spills of each kernel;
 2. ``kernel``: the one-device route against its plain PyTorch version on the
    card, Full and both Parity sectors, long_range(24), and localized(24) on
@@ -57,7 +59,17 @@ main paths at L=24 with the random-field Heisenberg chain: on Full(24) (dim
    solve (target 0, capped, recorded converged or not) and the half-chain
    entropy of the evolved Neel state, card against host; the child of
    phase 6 runs both methods in float64 at L=16 against scipy's eigsh;
-10. ``distributed``: one child process per GPU, on NCCL, runs evolve and
+10. ``general``: Auto(localized(24), 'U'*12 + 'D'*12) (the host BFS and
+   the canonical order timed; dim 2,704,156, the state list
+   SpinConserve(24, 12)'s), the ELL kernel (``csrc/ell_apply.cu``) on it
+   in float32 and float64 against its plain version and cuSPARSE's SpMV,
+   the same vector through the sector engine on SpinConserve(24, 12), the
+   on-the-fly sweep over the table budget, the rectangular pair
+   SpinConserve(24, 11) -> SpinConserve(24, 12) (imaginary coefficients),
+   eigsolve/entropy/evolve on Auto(24) against the JAX package's float64
+   values and the SpinConserve evolve, and estimate_memory against the
+   build's device bytes (see phase_general);
+11. ``distributed``: one child process per GPU, on NCCL, runs evolve and
    eigsolve at L=24 through the sharded route (one rank on a one-GPU
    machine: no exchange), and with two GPUs or more holds the gathered
    ``H.dot`` against the one-device route.
@@ -67,7 +79,8 @@ records also one ``{"engines": [...]}`` line), with the device memory peak
 of its solves (``tools.get_memory_usage``); any failure raises (non-zero
 exit). The last
 lines are the card's ``nvidia-smi`` name and power limit, the kernel records
-(the matvec kernel on each route, and the diagonal kernel), and
+(the matvec kernel on each route, the diagonal kernel and the ELL kernel),
+and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is available or the package is missing.
 
@@ -85,6 +98,10 @@ package's batching of the channels that share a matrix (see sector_forms).
     python3 chip_smoke.py --xor-dense-la
 
 times the XOR-dense engine at every split La (see xor_dense_la_sweep).
+
+    python3 chip_smoke.py --general
+
+runs the environment and the general phase alone (see phase_general).
 """
 
 import json
@@ -100,6 +117,7 @@ CHILD_DIST = '--child-distributed'
 GROUP_COSTS = '--group-costs'
 SECTOR_FORMS = '--sector-forms'
 XOR_DENSE_LA = '--xor-dense-la'
+GENERAL_ONLY = '--general'
 
 # error bounds of the kernel against its plain version: max|dy| / max|y|.
 # Both sum the same terms in float arithmetic of the working type but in
@@ -157,6 +175,18 @@ TARGET_C_MAX_ITS = 1
 TARGET_C_INNER_ITS = 1000
 NEEL_T = 1.0
 NEEL_MIN_ENTROPY = 1.0
+# the general phase: the ground-state energy of localized(24) in the
+# half-filling sector as the JAX package computes it in float64 on JAX-CPU
+# (tests/entropy_L24_reference.py, residual 1.3e-13), which the float32
+# eigsolve on Auto(24) must reach within EVAL0_AUTO_TOL; Auto(24)'s
+# dimension, C(24, 12); the evolve on Auto(24) against the same evolve on
+# SpinConserve(24, 12) (both float32, the same basis order); and
+# estimate_memory against the ELL build's measured device bytes
+EVAL0_SC24_F64 = -43.38101221201195
+EVAL0_AUTO_TOL = 1e-4
+AUTO_DIM_L24 = 2704156
+AUTO_EVOLVE_TOL = 1e-4
+ESTIMATE_RTOL = 0.10
 
 
 def emit(obj):
@@ -197,20 +227,28 @@ def random_planes(dim, dtype, seed):
 
 
 def phase_env():
+    """The card, the software, and the kernels' builds: one nvcc per
+    source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     import torch
-    from dynamite_tpu_torch.ops.xor_apply import build_library
+    from dynamite_tpu_torch.ops import ell, xor_apply
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    build = build_library()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        xor_build, ell_build = pool.map(lambda m: m.build_library(),
+                                        (xor_apply, ell))
     emit({'phase': 'env', 'python': sys.version.split()[0],
           'torch': torch.__version__, 'cuda': torch.version.cuda,
           'device': torch.cuda.get_device_name(0),
           'capability': list(torch.cuda.get_device_capability(0)),
-          'nvidia_smi': card, 'kernel_build_s': build['seconds'],
-          'ptxas': ptxas_records(build['log'])})
+          'nvidia_smi': card, 'kernel_build_s': xor_build['seconds'],
+          'ell_kernel_build_s': ell_build['seconds'],
+          'builds_wall_s': time.perf_counter() - t0,
+          'ptxas': ptxas_records(xor_build['log'] + ell_build['log'])})
     return card
 
 
@@ -225,11 +263,18 @@ def ptxas_records(log):
             mangled = entry.group(1)
             name = re.search(r'(xor_(?:apply|diagonal)_kernel)I([fd])',
                              mangled)
+            ell = re.search(r'ell_apply_kernelI([fd])([il])Lb([01])E',
+                            mangled)
             label = mangled
             if name:
                 args = ['float' if name.group(2) == 'f' else 'double',
                         *re.findall(r'Li(\d+)E', mangled)]
                 label = f"{name.group(1)}<{','.join(args)}>"
+            elif ell:
+                label = ('ell_apply_kernel<{},{},{}>'.format(
+                    'float' if ell.group(1) == 'f' else 'double',
+                    'int32' if ell.group(2) == 'i' else 'int64',
+                    'true' if ell.group(3) == '1' else 'false'))
             current = {'kernel': label}
             records.append(current)
         elif current is not None:
@@ -731,15 +776,18 @@ def counted(fn, what, engine='xor'):
     counted: ``xor_apply_sharded.launches`` (the one wrapper that launches
     the matvec kernel) and ``xor_diagonal.launches`` (the diagonal stream's
     builds, once per operator, dtype and layout), and beside them the
-    engines' applies (``sector_apply.applies``, ``xor_dense_apply.applies``;
-    torch ops, no kernel of their own), and the MINRES iterations of a
-    target solve (``minres_solver.iterations``, one H apply each). Raises
-    unless the ``engine`` ('xor', 'sector' or 'xor_dense') ran at least
-    once per matvec the solver counted, and, for an engine, unless the XOR
-    kernel did not run. Returns (fn's result, {name: count}, solver stats,
-    wall seconds)."""
+    engines' applies (``sector_apply.applies``, ``xor_dense_apply.applies``,
+    ``general_sweep.applies``; torch ops, no kernel of their own), the ELL
+    kernel's launches (``ell_apply.launches``), and the MINRES iterations
+    of a target solve (``minres_solver.iterations``, one H apply each).
+    Raises unless the ``engine`` ('xor', 'sector', 'xor_dense', 'ell' or
+    'sweep') ran at least once per matvec the solver counted, and, for any
+    other engine, unless the XOR kernel did not run. Returns (fn's result,
+    {name: count}, solver stats, wall seconds)."""
     import torch
     from dynamite_tpu_torch import computations
+    from dynamite_tpu_torch.ops.apply import general_sweep
+    from dynamite_tpu_torch.ops.ell import ell_apply
     from dynamite_tpu_torch.ops.sector_apply import sector_apply
     from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded,
                                                   xor_diagonal)
@@ -750,6 +798,8 @@ def counted(fn, what, engine='xor'):
     xor_diagonal.launches = 0
     sector_apply.applies = 0
     xor_dense_apply.applies = 0
+    ell_apply.launches = 0
+    general_sweep.applies = 0
     minres_solver.iterations = 0
     t0 = time.perf_counter()
     out = fn()
@@ -759,10 +809,13 @@ def counted(fn, what, engine='xor'):
                 'xor_diagonal': xor_diagonal.launches,
                 'sector_apply': sector_apply.applies,
                 'xor_dense_apply': xor_dense_apply.applies,
+                'ell_apply': ell_apply.launches,
+                'general_sweep': general_sweep.applies,
                 'minres_iterations': minres_solver.iterations}
     stats = dict(computations.last_solve_stats)
     ran = launches[{'xor': 'xor_apply', 'sector': 'sector_apply',
-                    'xor_dense': 'xor_dense_apply'}[engine]]
+                    'xor_dense': 'xor_dense_apply', 'ell': 'ell_apply',
+                    'sweep': 'general_sweep'}[engine]]
     if not ran >= stats['matvecs'] > 0:
         raise RuntimeError(f'{what}: {ran} {engine} applies for '
                            f'{stats["matvecs"]} matvecs')
@@ -1899,6 +1952,331 @@ def sector_forms(L=24):
         torch.cuda.empty_cache()
 
 
+def numpy_planes(dim, dtype, seed):
+    """A unit (2, dim) state on the card, drawn with numpy from ``seed``
+    (so two subspaces of one dimension get the same vector)."""
+    import numpy as np
+    import torch
+    v = np.random.RandomState(seed).standard_normal((2, dim))
+    x = torch.as_tensor(v / np.linalg.norm(v), dtype=dtype, device='cuda')
+    return x.contiguous()
+
+
+def ell_bound(cols, fr, fi, x, rows):
+    """The least time of one ELL apply on an H100: the bytes it must move
+    (the tables once, x read once, y written once) at HBM rate against its
+    operations (2 FMAs per table entry and plane pair, 4 with fi) at the
+    type's CUDA-core peak. Returns (ms, 'bytes' or 'operations')."""
+    dt = str(x.dtype).replace('torch.', '')
+    tables = sum(t.numel() * t.element_size() for t in (cols, fr, fi)
+                 if t is not None)
+    nbytes = tables + x.numel() * x.element_size() \
+        + 2 * rows * x.element_size()
+    flops = cols.numel() * (8 if fi is not None else 4)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return max(by_bytes, by_ops), ('bytes' if by_bytes >= by_ops
+                                   else 'operations')
+
+
+def ell_library_spmv(cols, fr, fi, x, y_kernel):
+    """The ELL kernel's yardstick: cuSPARSE's CSR SpMV (int32 indices,
+    complex in x's precision) of the same matrix, made on the card from the
+    tables' nonzero entries, times the same vector. Returns (ms,
+    max|dy|/max|y| against the kernel, nnz). The port never calls it; the
+    matrix is freed before returning."""
+    import torch
+    cdt = torch.complex64 if x.dtype == torch.float32 else torch.complex128
+    vals = fr.t() if fi is None else torch.complex(fr, fi).t()
+    vals = vals.to(cdt)
+    keep = vals != 0                       # (rows, G), row-major
+    counts = keep.sum(1, dtype=torch.int32)
+    crow = torch.zeros(len(counts) + 1, dtype=torch.int32, device=x.device)
+    crow[1:] = torch.cumsum(counts, 0)
+    A = torch.sparse_csr_tensor(crow, cols.t()[keep].int(), vals[keep],
+                                size=(cols.shape[1], x.shape[1]))
+    nnz = int(crow[-1])
+    del vals, keep, counts
+    xc = torch.complex(x[0], x[1])
+    y = A @ xc
+    ye = torch.complex(y_kernel[0], y_kernel[1])
+    err = float((y - ye).abs().max() / ye.abs().max())
+    ms = cuda_ms(lambda: A @ xc)
+    del A, xc, y, ye, crow
+    torch.cuda.empty_cache()
+    return ms, err, nnz
+
+
+def ell_record(name, kernel, dtype, seed):
+    """The ELL kernel of an operator's kernel object on its tables in
+    ``dtype``, against the plain version on the card (max|dy|/max|y| within
+    KERNEL_TOL) and cuSPARSE's SpMV of the same matrix, with times (CUDA
+    events, 3 warm-up, 20 reps; the plain version 3 reps after 1), the
+    bound and the tables' bytes and build seconds. Returns (record, x,
+    y)."""
+    import torch
+    from dynamite_tpu_torch.ops.ell import ell_apply, ell_apply_reference
+    dt = str(dtype).replace('torch.', '')
+    x = numpy_planes(kernel.plan.dim_right, dtype, seed)
+    tables = kernel.ell_tables.on(dtype, x.device)
+    cols, fr, fi = tables
+    rows = cols.shape[1]
+    saved = ell_apply.launches
+    y = ell_apply(x, cols, fr, fi)
+    y_plain = ell_apply_reference(x, cols, fr, fi)
+    torch.cuda.synchronize()
+    if not torch.isfinite(y).all():
+        raise RuntimeError(f'{name} {dt}: non-finite ELL kernel output')
+    abs_err = float((y - y_plain).abs().max())
+    rel_err = abs_err / float(y_plain.abs().max())
+    ms = cuda_ms(lambda: ell_apply(x, cols, fr, fi))
+    plain_ms = cuda_ms(lambda: ell_apply_reference(x, cols, fr, fi), 3, 1)
+    ell_apply.launches = saved  # a check's launches are not the main path's
+    bound_ms, bound_by = ell_bound(cols, fr, fi, x, rows)
+    lib_ms, lib_err, lib_nnz = ell_library_spmv(cols, fr, fi, x, y)
+    table_bytes = sum(t.numel() * t.element_size() for t in tables
+                      if t is not None)
+    rec = {'case': name, 'dtype': dt, 'rows': rows,
+           'dim_right': kernel.plan.dim_right,
+           'groups': cols.shape[0], 'has_fi': fi is not None,
+           'index_dtype': str(cols.dtype).replace('torch.', ''),
+           'table_mb': table_bytes / 1e6,
+           'table_build_ms': kernel.ell_tables.build_s[(dtype, x.device)]
+           * 1e3,
+           'max_abs_err': abs_err, 'rel_err': rel_err,
+           'tol': KERNEL_TOL[dt], 'ms': ms, 'plain_ms': plain_ms,
+           'bound_ms': bound_ms, 'bound_by': bound_by,
+           'bound_share': bound_ms / ms,
+           'gb_per_s': (table_bytes + 2 * (rows + kernel.plan.dim_right)
+                        * x.element_size()) / (ms * 1e-3) / 1e9,
+           'library_ms': lib_ms, 'library_rel_err': lib_err,
+           'library_nnz': lib_nnz}
+    if not rel_err <= KERNEL_TOL[dt]:
+        emit({'phase': 'general', 'cases': [rec]})
+        raise RuntimeError(f'{name} {dt}: the ELL kernel disagrees with its '
+                           f'plain version ({rel_err:.3e})')
+    # the library's values and sums are in another order than the kernel's
+    if not lib_err <= 10 * KERNEL_TOL[dt]:
+        emit({'phase': 'general', 'cases': [rec]})
+        raise RuntimeError(f'{name} {dt}: the CSR yardstick disagrees with '
+                           f'the ELL kernel ({lib_err:.3e})')
+    return rec, x, y
+
+
+def phase_general(L=24):
+    """General pairs through the ELL engine, float32 unless marked:
+
+    1. ``Auto(localized(24), 'U'*12 + 'D'*12)``: the host BFS and the
+       canonical order timed apart, its dimension C(24, 12) and its state
+       list equal to SpinConserve(24, 12)'s;
+    2. the ELL kernel on it (float32 and float64) against its plain version
+       and cuSPARSE (:func:`ell_record`), and the same vector through the
+       sector engine on SpinConserve(24, 12), with both engines' ms;
+    3. over the budget: the on-the-fly sweep (``general_sweep``), its ms,
+       its launches per apply (torch.profiler), against the kernel;
+    4. the rectangular pair SpinConserve(24, 11) -> SpinConserve(24, 12) of
+       index_sum(e^{i pi/7} sigma_plus + its adjoint) (imaginary
+       coefficients: the kernel's fi path), float32 and float64;
+    5. eigsolve(nev=1) on Auto(24) (lambda against the JAX package's
+       float64 value, the residual, seconds, matvecs, memory peak), the
+       half-chain entropy of its ground state on the card, and evolve(t=1)
+       of a numpy-seeded state on Auto(24) against the same evolve on
+       SpinConserve(24, 12);
+    6. estimate_memory against the build's measured device bytes.
+
+    Returns (the kernel records, the ELL launches of the main-path solves,
+    the phase record)."""
+    import numpy as np
+    import torch
+    from dynamite_tpu_torch import config, subspaces
+    from dynamite_tpu_torch.computations import (eigsolve,
+                                                 entanglement_entropy,
+                                                 evolve)
+    from dynamite_tpu_torch.models import localized
+    from dynamite_tpu_torch.operators import (index_sum, sigma_minus,
+                                              sigma_plus)
+    from dynamite_tpu_torch.states import State
+
+    seed_state = 'U' * (L // 2) + 'D' * (L // 2)
+    rec = {'phase': 'general', 'L': L, 'precision': 'single'}
+
+    # 1. discover the sector
+    H = localized(L)
+    H.reduce_msc()
+    t0 = time.perf_counter()
+    found = subspaces._bfs_sector(H.msc, State.str_to_state(seed_state, L))
+    rec['bfs_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ordered = subspaces._canonical_order(found, L)
+    rec['canonical_order_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    auto = subspaces.Auto(H, seed_state)
+    rec['auto_s'] = time.perf_counter() - t0
+    sc = subspaces.SpinConserve(L, L // 2)
+    dim = auto.get_dimension()
+    rec['dim'] = dim
+    same = np.array_equal(auto.state_map,
+                          sc.idx_to_state(np.arange(sc.get_dimension())))
+    if not (dim == AUTO_DIM_L24 and same
+            and np.array_equal(ordered, auto.state_map)):
+        emit(rec)
+        raise RuntimeError(f'Auto({L}): dimension {dim}, state list equal '
+                           f'to SpinConserve({L}, {L // 2})\'s: {same}')
+    del found, ordered
+
+    # 2. the ELL kernel on Auto(24), and the sector engine on SC(24, 12)
+    H.add_subspace(auto)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    kernel = H.get_mat()
+    torch.cuda.synchronize()
+    rec['build_s'] = time.perf_counter() - t0
+    rec['build_device_bytes'] = torch.cuda.memory_allocated() - mem0
+    if kernel.engine != 'ell':
+        raise RuntimeError(f'Auto({L}): the {kernel.engine} route, not ELL')
+    cases = []
+    r32, x, y = ell_record(f'localized_auto{L}', kernel, torch.float32,
+                           seed=21)
+    cases.append(r32)
+    cases.append(ell_record(f'localized_auto{L}', kernel, torch.float64,
+                            seed=21)[0])
+    kernel.ell_tables.drop(torch.float64, x.device)
+    torch.cuda.empty_cache()
+    H_sc = localized(L)
+    H_sc.add_subspace(sc)
+    k_sc = H_sc.get_mat()
+    y_sc = k_sc.apply(x)
+    sc_err = float((y_sc - y).abs().max()) / float(y.abs().max())
+    rec.update(sector_ms=cuda_ms(lambda: k_sc.apply(x)), ell_ms=r32['ms'],
+               sector_vs_ell_rel_err=sc_err)
+    if not sc_err <= KERNEL_TOL['float32']:
+        emit(rec)
+        raise RuntimeError(f'the sector engine on SpinConserve({L}, '
+                           f'{L // 2}) against the ELL kernel on Auto({L}): '
+                           f'{sc_err:.3e}')
+    del y_sc
+
+    # 3. over the budget: the on-the-fly sweep
+    saved_budget = config.ell_budget
+    config.ell_budget = r32['table_mb'] * 1e6 - 1
+    try:
+        H_sw = localized(L)
+        H_sw.add_subspace(auto)
+        k_sw = H_sw.get_mat()
+    finally:
+        config.ell_budget = saved_budget
+    if k_sw.engine != 'sweep':
+        raise RuntimeError(f'over the budget: the {k_sw.engine} route')
+    y_sw = k_sw.apply(x)
+    sw_err = float((y_sw - y).abs().max()) / float(y.abs().max())
+    sw_prof = profile_window(lambda: k_sw.apply(x), n=3)
+    engines = [{'case': f'general_sweep_auto{L}', 'dtype': 'float32',
+                'dim': dim, 'groups': len(k_sw.plan.groups),
+                'ms': cuda_ms(lambda: k_sw.apply(x), 5, 1),
+                'launches_per_apply': sw_prof['launches_per_call'],
+                'idle_share': sw_prof['idle_share'],
+                'rel_err_vs_ell': sw_err, 'ell_ms': r32['ms']}]
+    if not sw_err <= KERNEL_TOL['float32']:
+        emit({'engines': engines})
+        raise RuntimeError(f'general_sweep against the ELL kernel: '
+                           f'{sw_err:.3e}')
+    del H_sw, k_sw, y_sw, x, y
+    torch.cuda.empty_cache()
+
+    # 4. the rectangular pair, imaginary coefficients
+    phase = np.exp(1j * np.pi / 7)
+    H_rect = index_sum(phase * sigma_plus() + np.conj(phase) * sigma_minus(),
+                       size=L)
+    H_rect.allow_projection = True
+    left, right = subspaces.SpinConserve(L, L // 2), \
+        subspaces.SpinConserve(L, L // 2 - 1)
+    H_rect.add_subspace(left, right)
+    k_rect = H_rect.get_mat(subspaces=(left, right))
+    if k_rect.engine != 'ell' or not k_rect.ell_tables.has_fi:
+        raise RuntimeError(f'the rectangular pair: the {k_rect.engine} route')
+    for dtype in (torch.float32, torch.float64):
+        cases.append(ell_record(f'sigma_plus_sc{L}_{L // 2 - 1}_to_'
+                                f'{L // 2}', k_rect, dtype, seed=22)[0])
+    del H_rect, k_rect
+    torch.cuda.empty_cache()
+
+    # 5. solves on Auto(24)
+    peak_gb()
+    (evals, evecs), eig_launches, eig_stats, eig_s = counted(
+        lambda: eigsolve(H, nev=1, getvecs=True), f'eigsolve Auto({L})',
+        engine='ell')
+    eig_memory = peak_gb()
+    lam = float(evals[0])
+    v = evecs[0]
+    resid = float(torch.linalg.vector_norm(H.dot(v).data - lam * v.data))
+    resid /= abs(lam)
+    S, entropy_ms = timed(lambda: float(entanglement_entropy(
+        v, keep=range(L // 2))))
+    psi = State(subspace=auto)
+    psi.data = numpy_planes(dim, torch.float32, seed=23)
+    psi.set_initialized()
+    r, ev_launches, ev_stats, ev_s = counted(
+        lambda: evolve(H, psi, t=1.0), f'evolve Auto({L})', engine='ell')
+    ev_memory = peak_gb()
+    psi_sc = State(subspace=sc)
+    psi_sc.data = psi.data.clone()
+    psi_sc.set_initialized()
+    r_sc = evolve(H_sc, psi_sc, t=1.0)
+    ev_err = float((r.data - r_sc.data).abs().max())
+    nrm = r.norm()
+    rec.update(eigsolve_s=eig_s, eval0=lam, jax_f64_eval0=EVAL0_SC24_F64,
+               eval0_err=abs(lam - EVAL0_SC24_F64),
+               relative_residual=resid,
+               eigsolve_matvecs=eig_stats['matvecs'],
+               eigsolve_restarts=eig_stats['restarts'],
+               eigsolve_launches=eig_launches,
+               eigsolve_memory_peak_gb=eig_memory,
+               entropy_half_chain=S, jax_entropy_half_chain=ENTROPY_SC24,
+               entropy_err=abs(S - ENTROPY_SC24), entropy_ms=entropy_ms,
+               evolve_s=ev_s, evolve_matvecs=ev_stats['matvecs'],
+               evolve_launches=ev_launches, evolve_memory_peak_gb=ev_memory,
+               evolve_max_abs_err_vs_sc=ev_err, evolve_norm=nrm)
+
+    # 6. the memory estimate against the build's device bytes
+    est = H.estimate_memory() * 1e9
+    rec.update(estimate_bytes=est,
+               estimate_rel_err=abs(est - rec['build_device_bytes'])
+               / rec['build_device_bytes'])
+    emit(rec)
+    emit({'phase': 'general', 'cases': cases})
+    emit({'engines': engines})
+    if not (abs(lam - EVAL0_SC24_F64) <= EVAL0_AUTO_TOL and resid <= 1e-4):
+        raise RuntimeError(f'eigsolve Auto({L}): eigenvalue {lam}, '
+                           f'residual {resid:.3e}')
+    if not abs(S - ENTROPY_SC24) <= ENTROPY_TOL:
+        raise RuntimeError(f'Auto({L}) half-chain entropy {S}, not '
+                           f'{ENTROPY_SC24}')
+    if not (ev_err <= AUTO_EVOLVE_TOL and abs(nrm - 1) <= 1e-3):
+        raise RuntimeError(f'evolve Auto({L}): {ev_err:.3e} from '
+                           f'SpinConserve({L}, {L // 2}), norm {nrm}')
+    if not rec['estimate_rel_err'] <= ESTIMATE_RTOL:
+        raise RuntimeError(f'estimate_memory {est:.4g} bytes against the '
+                           f'measured {rec["build_device_bytes"]}')
+    del H, H_sc, k_sc, v, evecs, psi, psi_sc, r, r_sc
+    torch.cuda.empty_cache()
+    launches = eig_launches['ell_apply'] + ev_launches['ell_apply']
+    return cases, launches, engines
+
+
+def general_only():
+    """``python3 chip_smoke.py --general``: the environment and the general
+    phase alone."""
+    require_card_and_port()
+    from dynamite_tpu_torch import config
+    config.precision = 'single'
+    config._initialize()
+    phase_env()
+    t0 = time.perf_counter()
+    phase_general()
+    emit({'phase_seconds': {'phase_general': time.perf_counter() - t0}})
+
+
 def main():
     require_card_and_port()
     import torch
@@ -1930,6 +2308,8 @@ def main():
     run(phase_sector_solves)
     syk_recs, _syk_solve = run(phase_syk)
     engines += syk_recs
+    ell_cases, ell_launches, general_engines = run(phase_general)
+    engines += general_engines
     dist_rec = run(phase_distributed)
     emit({'phase_seconds': seconds,
           'total_s': time.perf_counter() - t_start})
@@ -1945,6 +2325,9 @@ def main():
     shard_case = next(r for r in sharded_rows
                       if r['case'] == 'localized_full'
                       and r['dtype'] == 'float32' and r['P'] == 4)
+    ell_case = ell_cases[0]  # localized(24) on Auto(24), float32
+    if not ell_launches > 0:
+        raise RuntimeError('the main path launched no ELL kernel')
     # the sector and XOR-dense engines: torch ops and cuBLAS products, no
     # kernel of the port's own, so their records stand apart from the
     # kernels' line
@@ -1992,6 +2375,22 @@ def main():
         'bound_ms': main_case['diag_bound_ms'],
         'bound_by': main_case['diag_bound_by'],
         'library_ms': None,
+    }, {
+        # localized(24) on Auto(24), float32; launches are those of the
+        # general phase's eigsolve and evolve; the yardstick is cuSPARSE's
+        # CSR SpMV of the same matrix
+        'name': 'ell_apply',
+        'route': 'cuda',
+        'source': 'dynamite_tpu_torch/csrc/ell_apply.cu',
+        'replaces': 'dynamite_tpu/ops/ell.py:252 (make_apply, XLA lax.scan; '
+                    'no Pallas kernel)',
+        'launches': ell_launches,
+        'max_abs_err': max(r['max_abs_err'] for r in ell_cases),
+        'ms': ell_case['ms'],
+        'plain_ms': ell_case['plain_ms'],
+        'bound_ms': ell_case['bound_ms'],
+        'bound_by': ell_case['bound_by'],
+        'library_ms': ell_case['library_ms'],
     }]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
@@ -2010,5 +2409,7 @@ if __name__ == '__main__':
     elif sys.argv[1:] == [XOR_DENSE_LA]:
         require_card_and_port()
         xor_dense_la_sweep()
+    elif sys.argv[1:] == [GENERAL_ONLY]:
+        general_only()
     else:
         main()

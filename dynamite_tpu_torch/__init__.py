@@ -1,19 +1,22 @@
 """
 dynamite_tpu_torch — the PyTorch/CUDA port of :mod:`dynamite_tpu`: symbolic
 Pauli-string Hamiltonians, Krylov time evolution and Lanczos eigensolving on
-the ``Full``, ``Parity`` and ``SpinConserve`` spaces and ``XParity`` over any
-of them. The matrix-free XOR matvec (Full, Parity) is a hand-written CUDA
-kernel for Hopper (``csrc/xor_apply.cu``); SpinConserve pairs run the sector
-engine, dense matmuls over the sector-major blocks (``ops/sector_apply.py``).
+the ``Full``, ``Parity``, ``SpinConserve``, ``Explicit`` and ``Auto`` spaces
+and ``XParity`` over any of them. The matrix-free XOR matvec (Full, Parity)
+is a hand-written CUDA kernel for Hopper (``csrc/xor_apply.cu``); square
+SpinConserve pairs run the sector engine, dense matmuls over the
+sector-major blocks (``ops/sector_apply.py``); every other pair runs ELL
+tables through a second hand-written kernel (``csrc/ell_apply.cu``).
 
 The public API keeps the JAX package's module layout:
 
 * :mod:`dynamite_tpu_torch.operators` — Operator, sigmax/y/z, op_sum, ...
 * :mod:`dynamite_tpu_torch.states` — State
-* :mod:`dynamite_tpu_torch.subspaces` — Full, Parity, SpinConserve, XParity
+* :mod:`dynamite_tpu_torch.subspaces` — Full, Parity, SpinConserve, Explicit,
+  Auto, XParity
 * :mod:`dynamite_tpu_torch.computations` — evolve, eigsolve
 * ``dynamite_tpu_torch.config`` — global defaults (L, subspace, precision,
-  device)
+  device, use_ell, ell_budget)
 
 State vectors are ``(2, dim)`` real tensors (re/im planes), the JAX
 package's layout, so the Krylov code and the tests compare like with like.
@@ -35,6 +38,12 @@ class _Config:
         self._subspace = None
         self._precision = None
         self._device = None
+        # the precomputed-table ELL engine for general subspace pairs
+        # (ops/ell.py, applied by csrc/ell_apply.cu); within this
+        # device-memory budget it replaces the on-the-fly term sweep, which
+        # recomputes subspace rankings every apply
+        self.use_ell = True
+        self.ell_budget = 4 << 30  # bytes
 
     # -- one-shot initialization ------------------------------------------
 

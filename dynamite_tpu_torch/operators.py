@@ -22,7 +22,7 @@ from .utils.bitwise import parity
 from .ops import msc as msc_tools
 from .ops.apply import _base
 from .parallel import multihost
-from .subspaces import Full, Parity
+from .subspaces import Explicit, Full, Parity
 from .states import State
 
 
@@ -494,6 +494,90 @@ class Operator:
             self._kernels.pop(subspaces, None)
         else:
             self._kernels.clear()
+
+    def estimate_memory(self, mpi_size=None, ncv=None):
+        """Estimated device memory (GB) used when applying the operator,
+        summed across ranks (cf. the reference's shell-mode formula,
+        operators.py:692-758).
+
+        Counts the MSC terms and the state tables of Explicit/Auto
+        subspaces (every rank), and the tables of the engine that the
+        dispatch would build for the default (left, right) pair
+        (:meth:`_engine_table_bytes`). With ``ncv`` given, also the Krylov
+        workspace: the (ncv+1, 2, dim) basis and two work vectors
+        (``solvers.krylov.workspace_bytes``)."""
+        if mpi_size is None:
+            mpi_size = multihost.world_size()
+
+        from .ops.index_maps import device_map
+        usage = self.msc.nbytes
+        explicit = {id(sp): sp for sp in (_base(self.left_subspace),
+                                          _base(self.right_subspace))
+                    if isinstance(sp, Explicit)}
+        usage += sum(device_map(sp).table_bytes() for sp in explicit.values())
+        usage *= mpi_size
+
+        usage += self._engine_table_bytes(mpi_size)
+
+        if ncv is not None:
+            from .solvers.krylov import workspace_bytes
+            usage += workspace_bytes(self.right_subspace.get_dimension(), ncv,
+                                     config.real_dtype.itemsize)
+        return usage / 1e9
+
+    def _engine_table_bytes(self, mpi_size):
+        """Device bytes of the tables that the dispatch of
+        :class:`.ops.apply.OperatorKernel` would build for the default
+        (left, right) pair in ``config.real_dtype``: the XOR kernel's
+        diagonal stream (one plane, two with an imaginary diagonal), the
+        XOR-dense channels, the sector engine's matrices (every rank), or
+        the ELL tables (an index and one coefficient per row and group, two
+        with imaginary coefficients); nothing for the on-the-fly sweep."""
+        from .ops import ell as ell_mod
+        from .ops.apply import _kernel_holds, _Plan
+        from .ops.sector_apply import (TABLE_BUDGET, sector_supported,
+                                       table_bytes_estimate)
+        from .ops.xor_apply import XorTables
+        from .ops.xor_dense import choose_split
+
+        left, right = self.left_subspace, self.right_subspace
+        self.establish_L()
+        plan = _Plan(self._msc_on(left), left, right)
+        if not plan.groups:
+            return 0
+        cb = config.real_dtype.itemsize
+        if plan.xor_mode:
+            tables = XorTables(plan, left)
+            if not plan.use_scan or _kernel_holds(tables):
+                if not tables.use_diag:
+                    return 0
+                return plan.dim_left * cb * (2 if tables.has_imag_diag
+                                             else 1)
+            split = choose_split(plan, left, right)
+            if split is not None:
+                return split[3]
+        elif sector_supported(plan, left, right):
+            est = table_bytes_estimate(plan, left, right)
+            if est <= TABLE_BUDGET:
+                return est * mpi_size  # replicated on every rank
+        if config.use_ell \
+                and ell_mod.table_bytes(plan) <= ell_mod.ell_budget():
+            return ell_mod.EllTables(plan).nbytes(config.real_dtype)
+        return 0
+
+    def spy(self, subspaces=None, max_size=1024):
+        """Plot the nonzero structure with matplotlib (imported here: the
+        port does not need it anywhere else)."""
+        if any(d > max_size for d in self.dim):
+            raise ValueError('Matrix too big to spy. Either build a smaller '
+                             'operator, or adjust the maximum spy size with '
+                             'the argument "max_size"')
+        from matplotlib import pyplot as plt
+        plt.figure()
+        dense = np.array((self.to_numpy(subspaces=subspaces) != 0).toarray(),
+                         dtype=float)
+        plt.imshow(np.log(dense + 1e-9), cmap='Greys')
+        plt.show()
 
     # -- applying ------------------------------------------------------------
 

@@ -20,14 +20,20 @@ An operator's MSC terms, grouped by mask m, define
   package sends every such operator past its Pallas kernel;
 * square SpinConserve pairs, plain or XParity-wrapped: the sector engine
   (:mod:`.sector_apply`), dense matmuls over the sector-major blocks;
-* any other pair raises NotImplementedError (ROADMAP.md queue 1, item 10).
+* every other pair (Explicit/Auto, projections such as Full -> Parity,
+  rectangular SpinConserve pairs, many-mask XOR operators the XOR-dense
+  engine declines, SpinConserve operators past the sector engine's limits):
+  the ELL engine (:mod:`.ell`), precomputed (G, rows) tables applied by the
+  hand-written kernel ``csrc/ell_apply.cu``, while ``config.use_ell`` is
+  set and the tables fit ``config.ell_budget``; otherwise the on-the-fly
+  sweep :func:`general_sweep` (torch ops).
 
 Once a process group is up (:func:`..parallel.multihost.initialize`), each
 rank holds a (2, local_dim) block of rows (:mod:`..parallel.mesh`) and the
 XOR apply exchanges blocks pairwise with the ranks its masks reach, then runs
-the kernel's sharded route once (:meth:`OperatorKernel.apply`). The sector
-and XOR-dense engines and XParity pairs do not run distributed yet (item
-12).
+the kernel's sharded route once (:meth:`OperatorKernel.apply`). The sector,
+XOR-dense and general engines and XParity pairs do not run distributed yet
+(ROADMAP.md queue 1, item 12).
 """
 
 import numpy as np
@@ -36,8 +42,9 @@ import torch.distributed as dist
 
 from ..parallel import mesh, multihost
 from ..utils.bitwise import parity as parity_np
+from . import ell
 from . import msc as msc_mod
-from .index_maps import device_map
+from .index_maps import device_map, parity
 from .sector_apply import build_sector_apply, sector_apply, sector_supported
 from .xor_apply import _MAX_SMEM, XorTables, xor_apply_sharded
 from .xor_dense import build_xor_dense, xor_dense_apply, xor_dense_supported
@@ -47,6 +54,8 @@ from .xor_dense import build_xor_dense, xor_dense_apply, xor_dense_supported
 # leave the XOR kernel for the XOR-dense engine, once its tables overflow
 UNROLL_GROUP_LIMIT = 128
 UNROLL_TERM_LIMIT = 512
+# rows per chunk of the on-the-fly sweep (as ops/reductions.py)
+SWEEP_CHUNK_BITS = 20
 
 
 def _base(subspace):
@@ -79,7 +88,8 @@ class _Plan:
         self.dim_left = left.get_dimension()
         self.dim_right = right.get_dimension()
         self.left_map = device_map(left)
-        self.right_map = device_map(right)
+        # one map (and one set of device tables) for a square pair
+        self.right_map = self.left_map if right is left else device_map(right)
         self.xor_mode = _is_xor_pair(left, right)
 
         lbase, rbase = _base(left), _base(right)
@@ -115,6 +125,58 @@ class _Plan:
 
     def row_states(self, rows):
         return self.left_map.i2s(rows)
+
+
+def _group_coefficient(bra, signs, coeffs, dtype):
+    """(fr, fi) of f_m(bra) = sum_t c_t (-1)**parity(bra & s_t); a part
+    that no term has is None."""
+    fr = fi = None
+    for s, c in zip(signs, coeffs):
+        w = (1 - 2 * parity(bra & int(s))).to(dtype)
+        cr, ci = float(c.real), float(c.imag)
+        if cr:
+            fr = w * cr if fr is None else fr.add_(w, alpha=cr)
+        if ci:
+            fi = w * ci if fi is None else fi.add_(w, alpha=ci)
+    return fr, fi
+
+
+def general_sweep(x, plan):
+    """y = A x on the fly, for any subspace pair: over rows in chunks of
+    2**SWEEP_CHUNK_BITS, for each mask group, bra = i2s_left(row) ^ m, its
+    Walsh coefficient, and x[s2i_right(bra)] where the image is valid (the
+    JAX package's general branches of ``_build_local``,
+    ``_build_local_chunked`` and ``_build_local_scan``). Torch ops, the
+    same on every device; the route over ``config.ell_budget`` or with
+    ``config.use_ell = False``, and the oracle of the ELL tables. Counts
+    its calls in ``general_sweep.applies``."""
+    dtype = x.dtype
+    y = x.new_zeros((2, plan.dim_left))
+    C = 1 << SWEEP_CHUNK_BITS
+    for start in range(0, plan.dim_left, C):
+        stop = min(start + C, plan.dim_left)
+        rows = torch.arange(start, stop, dtype=torch.int64, device=x.device)
+        kets = plan.row_states(rows)
+        yr, yi = y[0, start:stop], y[1, start:stop]
+        for m, _perm, signs, coeffs in plan.groups:
+            bra = kets ^ m
+            fr, fi = _group_coefficient(bra, signs, coeffs, dtype)
+            col, valid = plan.right_map.s2i(bra)
+            xp = x[:, torch.where(valid, col, 0)]
+            ok = valid.to(dtype)
+            if fr is not None:
+                fr = fr * ok
+                yr += fr * xp[0]
+                yi += fr * xp[1]
+            if fi is not None:
+                fi = fi * ok
+                yr -= fi * xp[1]
+                yi += fi * xp[0]
+    general_sweep.applies += 1
+    return y
+
+
+general_sweep.applies = 0
 
 
 def exchange(x_local, tables, bufs):
@@ -164,11 +226,12 @@ class OperatorKernel:
 
     The engine's tables are ``tables`` (XOR pairs: :class:`XorTables`),
     ``xor_dense`` (many-mask XOR pairs: :class:`.xor_dense.XorDenseTables`,
-    summarized in ``xor_dense_info``) or ``sector_plan`` and
-    ``sector_tables`` (SpinConserve pairs);
-    ``conserves_hint`` is the sector engine's conservation flag, a byproduct
-    of its build (None for the XOR engine, whose pairs are decided
-    symbolically).
+    summarized in ``xor_dense_info``), ``sector_plan`` and
+    ``sector_tables`` (SpinConserve pairs) or ``ell_tables`` (the ELL
+    engine: :class:`.ell.EllTables`); none of them for the on-the-fly
+    sweep. ``engine`` names the route. ``conserves_hint`` is the sector or
+    ELL engine's conservation flag, a byproduct of its build (None for the
+    XOR engine, whose pairs are decided symbolically, and for the sweep).
     """
 
     def __init__(self, msc, left, right):
@@ -182,6 +245,7 @@ class OperatorKernel:
         self.xor_dense_info = None
         self.sector_plan = None
         self.sector_tables = None
+        self.ell_tables = None
         self.conserves_hint = None
         self._krylov_ops = {}
         self._recv_bufs = {}
@@ -206,51 +270,67 @@ class OperatorKernel:
                 if self.xor_dense is not None:
                     self.xor_dense_info = self.xor_dense.info
                     return
-            raise NotImplementedError(
-                f'{self.plan.nterms} terms in {len(self.plan.groups)} '
-                'groups exceed the XOR kernel\'s shared-memory tables, '
-                'and the XOR-dense engine does not take them (below its '
-                'minimum dimension, or over config.ell_budget); they '
-                'need the general or ELL engine, which is not ported '
-                'yet (ROADMAP.md queue 1, item 10)')
         if not self.plan.groups:
             return  # every term projected away, or none to begin with
+        if distributed:
+            raise NotImplementedError(
+                f'the ({left!r}, {right!r}) pair over ranks needs the '
+                'sharded sector, ELL or general engine, which is not ported '
+                'yet (ROADMAP.md queue 1, item 12)')
         if sector_supported(self.plan, left, right):
-            if distributed:
-                raise NotImplementedError(
-                    'the sector engine over ranks (ops/sector_shard.py) is '
-                    'not ported yet (ROADMAP.md queue 1, item 12)')
             self.sector_tables, self.sector_plan = build_sector_apply(
                 self.plan, left, right)
             if self.sector_tables is not None:
                 self.conserves_hint = self.sector_plan.conserved
                 return
-        raise NotImplementedError(
-            f'the ({left!r}, {right!r}) pair needs the general or ELL engine '
-            '(rectangular SpinConserve pairs, operators over the sector '
-            'engine\'s group limit or table budget, Explicit/Auto), which is '
-            'not ported yet (ROADMAP.md queue 1, item 10)')
+        from .. import config
+        if config.use_ell and ell.table_bytes(self.plan) <= ell.ell_budget():
+            # the first set of tables, in the configured precision, also
+            # gives the conservation flag (the JAX package's
+            # _try_ell_local)
+            self.ell_tables = ell.EllTables(self.plan)
+            self.conserves_hint = self.ell_tables.build_conserving(
+                config.real_dtype, config.device)
+
+    @property
+    def engine(self):
+        """The route :meth:`apply` takes: 'xor', 'xor_dense', 'sector',
+        'ell', 'sweep', or 'zero' (no term left)."""
+        if self.tables is not None:
+            return 'xor'
+        if self.xor_dense is not None:
+            return 'xor_dense'
+        if self.sector_tables is not None:
+            return 'sector'
+        if self.ell_tables is not None:
+            return 'ell'
+        return 'sweep' if self.plan.groups else 'zero'
 
     def apply(self, x):
         """This rank's rows of y (every row without a process group).
 
-        The sector and XOR-dense engines run on one device. The XOR
-        engine exchanges blocks with the ranks ``me ^ m_hi``, then launches
-        the kernel once. Without a group, or on one rank, the layout is one
-        block and nothing is exchanged. The receive buffers,
+        The sector, XOR-dense, ELL and sweep routes run on one device. The
+        XOR engine exchanges blocks with the ranks ``me ^ m_hi``, then
+        launches the kernel once. Without a group, or on one rank, the
+        layout is one block and nothing is exchanged. The receive buffers,
         ``len(hi_list) - 1`` blocks, are kept per dtype and device between
         calls, so the memory grows with the number of distinct high masks."""
         x = x.contiguous()
         dim = self.plan.dim_right
-        if self.xor_dense is not None or not self.plan.xor_mode:
+        if self.tables is None:
             if x.shape != (2, dim):
                 raise ValueError(f'expected (2, {dim}) planes, got '
                                  f'{tuple(x.shape)}')
             if self.xor_dense is not None:
                 return xor_dense_apply(x, self.xor_dense)
-            if self.sector_tables is None:
+            if self.sector_tables is not None:
+                return sector_apply(x, self.sector_tables)
+            if self.ell_tables is not None:
+                tables = self.ell_tables.on(x.dtype, x.device)
+                return ell.ell_apply(x, *tables)
+            if not self.plan.groups:
                 return x.new_zeros((2, self.plan.dim_left))
-            return sector_apply(x, self.sector_tables)
+            return general_sweep(x, self.plan)
         n = mesh.local_dim(dim)
         if x.shape != (2, n):
             raise ValueError(f'expected this rank\'s (2, {n}) rows, got '

@@ -1,7 +1,7 @@
 """
 Device-side subspace index maps over int64 tensors (the JAX package's
-``ops/index_maps.py``: Full, Parity and SpinConserve; XParity resolves to its
-parent's map).
+``ops/index_maps.py``: Full, Parity, SpinConserve and Explicit/Auto; XParity
+resolves to its parent's map).
 
 Each map is a small host object with
 
@@ -145,6 +145,53 @@ class SpinConserveMap:
         return tb['off_tk'][slot] + rb * tb['na_tk'][slot] + ra, valid
 
 
+class ExplicitMap:
+    """Sorted-array binary search (``torch.searchsorted``) with an optional
+    permutation back to user order (reference: bsubspace_impl.h:306-331).
+    The state list and its sorted form are copied to a device at first use
+    there and kept on the map."""
+
+    def __init__(self, L, state_map, rmap_states, rmap_indices):
+        self.L = L
+        self.state_map = np.asarray(state_map)
+        self.rmap_states = np.asarray(rmap_states)
+        self.rmap_indices = (None if rmap_indices is None
+                             else np.asarray(rmap_indices))
+        self._tables = {}
+
+    def _on(self, device, name):
+        """One of the int64 tables on ``device`` (cached per map); the
+        sorted states are the state list itself when it came sorted."""
+        key = (torch.device(device), name)
+        if key not in self._tables:
+            arr = getattr(self, name)
+            if name == 'rmap_states' and arr is self.state_map:
+                self._tables[key] = self._on(device, 'state_map')
+            else:
+                self._tables[key] = torch.as_tensor(
+                    np.ascontiguousarray(arr, dtype=np.int64), device=device)
+        return self._tables[key]
+
+    def table_bytes(self):
+        """Bytes of the tables one device holds once both maps ran."""
+        arrays = {id(a): a.nbytes for a in (self.state_map, self.rmap_states,
+                                            self.rmap_indices)
+                  if a is not None}
+        return sum(arrays.values())
+
+    def i2s(self, idx):
+        return self._on(idx.device, 'state_map')[idx]
+
+    def s2i(self, state):
+        sorted_states = self._on(state.device, 'rmap_states')
+        pos = torch.searchsorted(sorted_states, state)
+        pos = pos.clamp_(max=len(self.rmap_states) - 1)
+        valid = sorted_states[pos] == state
+        if self.rmap_indices is not None:
+            return self._on(state.device, 'rmap_indices')[pos], valid
+        return pos, valid
+
+
 def device_map(subspace):
     """Build the device index map for a host Subspace object.
 
@@ -162,6 +209,7 @@ def device_map(subspace):
         return ParityMap(subspace.L, subspace.space)
     if isinstance(subspace, sp.SpinConserve):
         return SpinConserveMap(subspace.L, subspace.k, subspace.nchoosek)
-    raise NotImplementedError(
-        f'no device map for subspace type {type(subspace).__name__} '
-        '(ROADMAP.md queue 1, item 10)')
+    if isinstance(subspace, sp.Explicit):
+        return ExplicitMap(subspace.L, subspace.state_map,
+                           subspace.rmap_states, subspace.rmap_indices)
+    raise TypeError(f'no device map for subspace type {type(subspace)}')

@@ -76,8 +76,9 @@ def _merged_transpose(L, perm):
 
 
 def _full_rho(data, subspace, keep):
-    """The (2^k, 2^k) complex128 RDM of a Full/Parity state's (2, dim)
-    planes, on their device."""
+    """The (2^k, 2^k) complex128 RDM of a Full, Parity or Explicit/Auto
+    state's (2, dim) planes, on their device: other spaces scatter into the
+    2^L vector through their index map's ``i2s``."""
     from .. import subspaces as sp
     from .index_maps import device_map
 

@@ -51,8 +51,8 @@ from . import sectors as sec_mod
 from .index_maps import parity as parity_t
 
 # operators with more mask groups than this (e.g. SYK: thousands of
-# non-conserving masks) would take the JAX package's scan/ELL engines, which
-# are not ported (ROADMAP.md queue 1, items 9 and 10). Long-range two-body
+# non-conserving masks) take the ELL engine (ops/ell.py) or the on-the-fly
+# sweep, as in the JAX package. Long-range two-body
 # models stay under this for any L <= 63 (O(L^2/2) mask groups: XX and YY
 # share a group), and channel merging keeps the channel count O(sectors +
 # distinct crossing masks), so the limit only exists to stop pathological

@@ -42,24 +42,15 @@ run the plain versions.
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..utils.bitwise import parity as parity_np
+from ..utils.build import CSRC, NVCC_FLAGS, build_shared_library, find_nvcc
 from .index_maps import parity
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / 'csrc' / 'xor_apply.cu'
-BUILD_DIR = _PKG_DIR / '_build'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
+SOURCE = CSRC / 'xor_apply.cu'
 THREADS = 256  # kThreads in the CUDA source
 VECS = 2  # vectors of R rows per thread (kVecs in the CUDA source)
 MAX_SOURCES = 64  # kMaxSources in the CUDA source
@@ -372,43 +363,12 @@ def xor_diagonal_reference(tables, row0, dtype, device):
     return d
 
 
-def _find_nvcc():
-    cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
-    for candidate in (shutil.which('nvcc'),
-                      os.path.join(cuda_home, 'bin', 'nvcc')):
-        if candidate and os.path.exists(candidate):
-            return candidate
-    raise RuntimeError('nvcc not found (set CUDA_HOME or put nvcc on PATH); '
-                       'the XOR kernel is built from csrc/xor_apply.cu')
-
-
 def build_library():
     """Compile ``csrc/xor_apply.cu`` into ``_build/<hash>/libxor_apply.so``
-    unless that file exists already. The hash covers the source and the
-    flags. Returns ``{'path', 'seconds', 'log'}``; seconds is 0 when the
-    library was already built."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_DIR / key
-    lib = out_dir / 'libxor_apply.so'
-    log = out_dir / 'nvcc.log'
-    if lib.exists():
-        return {'path': lib, 'seconds': 0.0,
-                'log': log.read_text() if log.exists() else ''}
-    out_dir.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: a concurrent process never
-    # loads a half-written library
-    tmp = out_dir / f'libxor_apply.{os.getpid()}.so'
-    t0 = time.perf_counter()
-    proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed with exit code {proc.returncode}:\n'
-                           f'{proc.stdout}\n{proc.stderr}')
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return {'path': lib, 'seconds': seconds, 'log': proc.stdout + proc.stderr}
+    unless that file exists already (see
+    :func:`..utils.build.build_shared_library`)."""
+    return build_shared_library(find_nvcc(), NVCC_FLAGS, SOURCE,
+                                'libxor_apply.so')
 
 
 class _XorArgs(ctypes.Structure):

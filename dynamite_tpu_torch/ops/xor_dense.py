@@ -52,11 +52,10 @@ import numpy as np
 import torch
 
 from ..utils.bitwise import parity
+from .ell import ell_budget
 
 MIN_DIM = 1 << 12     # below this, launch overhead dominates any engine
 CHANNEL_BATCH = 64    # channels per product (the JAX package's batch)
-# the JAX package's ops/ell.py table budget, read from config.ell_budget
-DEFAULT_ELL_BUDGET = 4 << 30
 _COEFF_TOL = 0.0      # exact: a term is real xor imaginary
 _SCATTER_LINES = 4096  # lines per device scatter of the table build
 
@@ -75,10 +74,6 @@ COST_MODEL = CostModel(gemm_flops=52e12, hbm_bps=3.35e12, step_s=30e-6,
                        tile=1, halfwidth=128)
 
 
-def ell_budget():
-    """Bytes of device memory the engine's tables may take."""
-    from .. import config
-    return getattr(config, 'ell_budget', DEFAULT_ELL_BUDGET)
 
 
 def _typed_channels_at(groups, eff, La):
@@ -283,10 +278,10 @@ class XorDenseTables:
         return runs
 
 
-def build_xor_dense(plan, left, right):
-    """The engine's :class:`XorDenseTables` for a plan it supports, with
-    its tables built in ``config.real_dtype`` on ``config.device``; None
-    when it does not take the plan or no split fits the budget."""
+def choose_split(plan, left, right):
+    """(eff, La, coeff_bytes, table_bytes) of the split the engine would
+    build for the plan in ``config.real_dtype``, or None when it declines
+    the plan (unsupported, or no split under ``config.ell_budget``)."""
     from .. import config
     from .xor_apply import _effective_sign_mask
 
@@ -316,11 +311,22 @@ def build_xor_dense(plan, left, right):
             raise ValueError(f'config.xor_dense_la = {La}: its tables take '
                              f'{need} bytes, over config.ell_budget = '
                              f'{budget}')
-    else:
-        pick = pick_split(plan.groups, eff, nbits, budget, cb)
-        if pick is None:
-            return None
-        La = pick[1]
+        return eff, La, cb, need
+    pick = pick_split(plan.groups, eff, nbits, budget, cb)
+    if pick is None:
+        return None
+    return eff, pick[1], cb, pick[3]
+
+
+def build_xor_dense(plan, left, right):
+    """The engine's :class:`XorDenseTables` for a plan it supports, with
+    its tables built in ``config.real_dtype`` on ``config.device``; None
+    when it does not take the plan or no split fits the budget."""
+    from .. import config
+    split = choose_split(plan, left, right)
+    if split is None:
+        return None
+    eff, La, cb, _need = split
     tables = XorDenseTables(plan, eff, La, cb)
     tables.on(config.real_dtype, config.device)
     return tables

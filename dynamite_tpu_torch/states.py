@@ -28,6 +28,7 @@ from .parallel import mesh, multihost
 _SAVED_MODULE = 'dynamite_tpu.subspaces'
 _LOADABLE = {'Full': subspaces.Full, 'Parity': subspaces.Parity,
              'SpinConserve': subspaces.SpinConserve,
+             'Explicit': subspaces.Explicit, 'Auto': subspaces.Auto,
              'XParity': subspaces.XParity}
 # numpy's own globals in a pickled array (SpinConserve's binomial table),
 # under numpy 2's module path and numpy 1's
@@ -46,9 +47,8 @@ class _SubspaceUnpickler(pickle.Unpickler):
         if module in (_SAVED_MODULE, subspaces.__name__):
             if name in _LOADABLE:
                 return _LOADABLE[name]
-            raise NotImplementedError(
-                f'loading a state on a {name} subspace is not ported yet '
-                '(ROADMAP.md queue 1, item 10)')
+            raise pickle.UnpicklingError(
+                f'unknown subspace class {module}.{name} in state metadata')
         if (module, name) in _NUMPY_GLOBALS:
             return super().find_class(module, name)
         raise pickle.UnpicklingError(

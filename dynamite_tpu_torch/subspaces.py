@@ -2,9 +2,9 @@
 Symmetry-sector subspaces: bijections between dense vector indices and the
 product states (bitstrings) they represent.
 
-The port carries ``Full``, ``Parity``, ``SpinConserve`` and ``XParity`` over
-any of them; ``Explicit`` and ``Auto`` raise until they are ported. Host-side
-maps here are vectorized numpy; the torch versions that the device code uses
+The port carries ``Full``, ``Parity``, ``SpinConserve``, ``Explicit``,
+``Auto`` and ``XParity`` over any of them. Host-side maps here are
+vectorized numpy; the torch versions that the device code uses
 live in :mod:`dynamite_tpu_torch.ops.index_maps`.
 
 Reference semantics: src/dynamite/subspaces.py and
@@ -20,7 +20,7 @@ import numpy as np
 from . import config
 from .ops import msc as msc_mod
 from .utils import validate
-from .utils.bitwise import parity
+from .utils.bitwise import parity, popcount
 
 
 class Subspace:
@@ -281,6 +281,170 @@ class SpinConserve(_ProductStateSubspace):
         return sectors.idx_to_state(self.sector_layout, idx)
 
 
+class Explicit(_ProductStateSubspace):
+    """A subspace given by an explicit list of product states.
+
+    state_to_idx is a binary search over the sorted state list
+    (reference: bsubspace_impl.h:306-331).
+    """
+
+    def __init__(self, state_list, L=None):
+        self.state_map = np.ascontiguousarray(state_list, dtype=np.int64)
+
+        if np.all(self.state_map[:-1] <= self.state_map[1:]):
+            self.rmap_indices = None  # already sorted: rank == index
+            self.rmap_states = self.state_map
+        else:
+            order = np.argsort(self.state_map, kind='stable')
+            self.rmap_indices = np.ascontiguousarray(order, dtype=np.int64)
+            self.rmap_states = np.ascontiguousarray(self.state_map[order])
+
+        if np.any(self.rmap_states[1:] == self.rmap_states[:-1]):
+            raise ValueError('state_list contains duplicate states')
+
+        super().__init__(L=L)
+
+    def check_L(self, value):
+        if int(self.rmap_states[-1]) >> value != 0:
+            raise ValueError('State in subspace has more spins than provided')
+        return value
+
+    def __hash__(self):
+        return hash(('Explicit', self.get_checksum()))
+
+    def __repr__(self):
+        if len(self.state_map) <= 32:
+            shown = list(self.state_map)
+        else:
+            shown = (list(self.state_map[:3]) + ['...']
+                     + list(self.state_map[-3:]))
+        L = (self.L if self.L is not None
+             else int(self.rmap_states[-1]).bit_length())
+        body = ', '.join(
+            x if isinstance(x, str) else '0b' + bin(int(x))[2:].zfill(L)
+            for x in shown)
+        arg = f'[{body}]'
+        if self.L is not None:
+            arg += f', L={self.L}'
+        return f'Explicit({arg})'
+
+    def get_dimension(self):
+        return len(self.state_map)
+
+    def _idx_to_state(self, idx):
+        return self.state_map[idx]
+
+    def _state_to_idx(self, state):
+        pos = np.searchsorted(self.rmap_states, state)
+        pos = np.minimum(pos, len(self.rmap_states) - 1)
+        found = self.rmap_states[pos] == state
+        idx = pos if self.rmap_indices is None else self.rmap_indices[pos]
+        return np.where(found, idx, -1)
+
+
+class Auto(Explicit):
+    """Discover the symmetry sector containing a seed state by breadth-first
+    search over the Hamiltonian's hopping graph (reference:
+    subspaces.py:466-529 + bsubspace.pyx:212-261). The search runs in the
+    port's host C++ (``csrc/host_bfs.cpp``, :mod:`._native`).
+
+    Parameters
+    ----------
+    H : Operator
+        The operator whose conserved sector is wanted.
+    state : int or str
+        Seed product state (string like 'UUDD...' or integer).
+    size_guess : int, optional
+        Unused (kept for API parity; memory is grown dynamically).
+    sort : bool
+        Sort the discovered states (True) or keep reverse-BFS
+        (Cuthill-McKee-like) order (False).
+    """
+
+    def __init__(self, H, state, size_guess=None, sort=True):
+        from .states import State
+
+        H.establish_L()
+
+        self._repr_args = f'H={H!r}, state={state!r}'
+        if size_guess is not None:
+            self._repr_args += f', size_guess={size_guess}'
+        if not sort:
+            self._repr_args += ', sort=False'
+
+        self.state = State.str_to_state(state, H.L)
+        H.reduce_msc()
+        state_map = _bfs_sector(H.msc, self.state)
+
+        if sort:
+            state_map = _canonical_order(state_map, H.L)
+        else:
+            state_map = state_map[::-1]  # reverse Cuthill-McKee needs reverse
+
+        super().__init__(state_map, L=H.L)
+
+    def __repr__(self):
+        return f'Auto({self._repr_args})'
+
+
+def _canonical_order(states, L):
+    """The canonical deterministic order for a discovered sector: when the
+    sector has uniform Hamming weight (a magnetization sector), the
+    SpinConserve sector-major order, so Auto == SpinConserve holds, as in
+    the reference (its tests rely on the equality); otherwise plain value
+    order."""
+    pcs = popcount(states)
+    if len(states) and np.all(pcs == pcs.flat[0]):
+        from .ops import sectors
+        lay = sectors.layout(L, int(pcs.flat[0]))
+        key = sectors.state_to_idx(lay, states)
+        return np.ascontiguousarray(states[np.argsort(key, kind='stable')])
+    return np.sort(states)
+
+
+def _bfs_sector(msc, seed):
+    """BFS over the graph whose edges are the operator's masks, starting from
+    ``seed``. An edge (state -> state^mask) exists when the mask group's
+    total coefficient sum_t (-1)**parity(state & sign_t) * coeff_t is
+    nonzero. Returns states in discovery (queue) order, from the host C++
+    search (:func:`._native.bfs_sector`)."""
+    from . import _native
+    masks, offsets = msc_mod.mask_groups(msc)
+    return _native.bfs_sector(masks, offsets, msc['signs'], msc['coeffs'],
+                              int(seed))
+
+
+def _bfs_sector_reference(msc, seed):
+    """The plain numpy version of :func:`_bfs_sector` (the JAX package's
+    fallback loop), the same states in the same order; the tests hold the
+    native search against it. A Python loop over every edge: minutes at
+    L=24, so no entry point calls it."""
+    masks, offsets = msc_mod.mask_groups(msc)
+    signs = msc['signs']
+    coeffs = msc['coeffs']
+
+    seen = {int(seed)}
+    order = [int(seed)]
+    frontier = np.array([seed], dtype=np.int64)
+
+    while frontier.size:
+        # (F, T) parity signs, then per-group coefficient totals
+        sgn = 1 - 2 * parity(frontier[:, None] & signs[None, :])
+        totals = np.add.reduceat(sgn * coeffs[None, :], offsets[:-1], axis=1)
+        edges = frontier[:, None] ^ masks[None, :]      # (F, G)
+        valid = totals != 0
+        new = []
+        for s, ok in zip(edges.reshape(-1), valid.reshape(-1)):
+            s = int(s)
+            if ok and s not in seen:
+                seen.add(s)
+                new.append(s)
+        order.extend(new)
+        frontier = np.array(new, dtype=np.int64)
+
+    return np.array(order, dtype=np.int64)
+
+
 class XParity(Subspace):
     r"""Parity in the X basis, layered on top of a parent subspace.
 
@@ -326,9 +490,24 @@ class XParity(Subspace):
                 return
             raise ValueError('SpinConserve is only compatible with XParity '
                              'when k=L/2')
-        raise NotImplementedError(
-            f'XParity over {type(parent).__name__} is not ported yet '
-            '(ROADMAP.md queue 1, item 10)')
+
+        # Explicit and friends: check directly that each of the first dim/2
+        # states starts with 0 and has its complement in the subspace
+        dim = parent.get_dimension()
+        if dim % 2 != 0:
+            raise ValueError('parent subspace must have even dimension')
+        flip = (1 << parent.L) - 1
+        block = 1 << 14
+        for start in range(0, dim // 2, block):
+            stop = min(start + block, dim // 2)
+            reps = parent.idx_to_state(np.arange(start, stop))
+            if np.count_nonzero(reps >> (parent.L - 1)):
+                raise ValueError('first dim/2 basis states must have spin '
+                                 'L-1 up (0 in integer notation)')
+            if np.any(parent.state_to_idx(reps ^ flip) == -1):
+                raise ValueError('the complement of every state in subspace '
+                                 '(all spins flipped) must also be in '
+                                 'subspace')
 
     @property
     def parent(self):
@@ -435,16 +614,3 @@ class XParity(Subspace):
         out.set_initialized()
         return out
 
-
-def _not_ported(name, item):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f'{name} is not ported to dynamite_tpu_torch yet '
-            f'(ROADMAP.md queue 1, item {item})')
-    return type(name, (Subspace,), {'__init__': __init__,
-                                    '__doc__': f'Not ported yet: ROADMAP.md '
-                                               f'queue 1, item {item}.'})
-
-
-Explicit = _not_ported('Explicit', 10)
-Auto = _not_ported('Auto', 10)

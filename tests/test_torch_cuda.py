@@ -5,8 +5,9 @@ vector) and on XParity spaces, the sector and XOR-dense engines against
 their plain versions, Operator.dot / evolve / eigsolve through them, the
 RDM's device route and the entropy on the card against the host routes,
 the MINRES inner solve and eigsolve(target=) against the same calls on the
-CPU, memory tracking, and the distributed path on NCCL when the machine has
-two GPUs or more.
+CPU, the ELL kernel (``csrc/ell_apply.cu``) against its plain version and
+Explicit/Auto/rectangular pairs through it, memory tracking, and the
+distributed path on NCCL when the machine has two GPUs or more.
 
 Every test here needs a card (marker ``cuda``) and skips without one. The
 file imports no JAX, so it runs on a machine without it, from the root of
@@ -457,6 +458,100 @@ def test_target_eigsolve_on_card_matches_cpu(card):
     assert np.allclose(got, want, rtol=1e-10, atol=0)
     nearest = np.sort(exact[np.argsort(np.abs(exact - target))[:2]])
     assert np.allclose(got, nearest, rtol=1e-10, atol=0)
+
+
+def _ell_kernel(case, L=11):
+    """An operator's kernel object on the ELL route: 'auto' (real
+    coefficients), 'rect' (SpinConserve(L, k-1) -> SpinConserve(L, k) of
+    e^{i pi/7} sigma_plus plus its adjoint: the fi table), 'odd_rows'
+    (Parity -> Full of ising(L): 2**L rows from 2**(L-1) columns, and an
+    Explicit subset whose row count is no multiple of the block)."""
+    from dynamite_tpu_torch.operators import (index_sum, sigma_minus,
+                                              sigma_plus)
+    if case == 'auto':
+        H = models.localized(L)
+        left = right = subspaces.Auto(H, 'U' * (L // 2) + 'D' * (L - L // 2))
+    elif case == 'rect':
+        c = np.exp(1j * np.pi / 7)
+        H = index_sum(c * sigma_plus() + np.conj(c) * sigma_minus(), size=L)
+        left = subspaces.SpinConserve(L, L // 2)
+        right = subspaces.SpinConserve(L, L // 2 - 1)
+    elif case == 'full_from_even':
+        H = models.ising(L)
+        left, right = subspaces.Full(L=L), subspaces.Parity('even', L=L)
+    else:
+        H = models.localized(L)
+        sc = subspaces.SpinConserve(L, L // 2)
+        states = sc.idx_to_state(np.arange(sc.get_dimension()))[:-37]
+        left = right = subspaces.Explicit(states[::-1].copy(), L=L)
+    H.allow_projection = True
+    H.add_subspace(left, right)
+    k = H.get_mat(subspaces=(left, right))
+    assert k.engine == 'ell'
+    return H, left, right, k
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('case', ['auto', 'rect', 'full_from_even',
+                                  'odd_rows'])
+def test_ell_kernel_vs_plain_on_card(card, case, dtype):
+    from dynamite_tpu_torch.ops.ell import ell_apply, ell_apply_reference
+    H, left, right, k = _ell_kernel(case)
+    cols, fr, fi = k.ell_tables.on(dtype, card)
+    assert cols.is_cuda and cols.dtype == torch.int32
+    assert (fi is not None) is (case == 'rect')
+    x = torch.as_tensor(_planes(right.get_dimension(), seed=8), dtype=dtype,
+                        device=card)
+    before = ell_apply.launches
+    y = ell_apply(x, cols, fr, fi)
+    torch.cuda.synchronize()
+    assert ell_apply.launches == before + 1
+    y_plain = ell_apply_reference(x, cols, fr, fi)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert y.shape == (2, left.get_dimension()) and y.dtype == dtype
+    assert float((y - y_plain).abs().max()) <= \
+        tol * float(y_plain.abs().max())
+    # the operator's apply launches the same kernel, once
+    y2 = k.apply(x)
+    assert ell_apply.launches == before + 2
+    assert torch.equal(y2, y)
+
+
+def test_ell_kernel_refuses_bad_inputs(card):
+    from dynamite_tpu_torch.ops.ell import ell_apply
+    _H, _l, right, k = _ell_kernel('auto')
+    cols, fr, fi = k.ell_tables.on(torch.float32, card)
+    x = torch.zeros((2, right.get_dimension()), device=card)
+    with pytest.raises(TypeError):
+        ell_apply(x.double(), cols, fr, fi)
+    with pytest.raises(ValueError):
+        ell_apply(x, cols.t(), fr, fi)
+    with pytest.raises(ValueError):
+        ell_apply(x, cols.cpu(), fr, fi)
+
+
+def test_ell_evolve_and_eigsolve_on_card(card):
+    """Auto(localized(12)) at half filling through the ELL kernel, against
+    the same calls on SpinConserve(12, 6) (the same basis order) and
+    eigvalsh."""
+    from dynamite_tpu_torch.ops.ell import ell_apply
+    H = models.localized(12)
+    auto = subspaces.Auto(H, 'U' * 6 + 'D' * 6)
+    H.add_subspace(auto)
+    H_sc = models.localized(12)
+    H_sc.add_subspace(subspaces.SpinConserve(12, 6))
+    v = _planes(auto.get_dimension(), seed=6)
+    psi, psi_sc = State(subspace=auto), State(subspace=H_sc.subspace)
+    psi.set_planes(v)
+    psi_sc.set_planes(v)
+    before = ell_apply.launches
+    got = evolve(H, psi, t=1.0).to_numpy()
+    assert ell_apply.launches > before
+    want = evolve(H_sc, psi_sc, t=1.0).to_numpy()
+    assert np.linalg.norm(got - want) < 1e-10
+    evals = eigsolve(H, nev=2)
+    exact = np.linalg.eigvalsh(H.to_numpy().toarray())[:2]
+    assert np.allclose(evals[:2], exact, rtol=1e-10, atol=1e-12)
 
 
 def test_memory_usage_grows_on_card(card):

@@ -131,13 +131,19 @@ def test_projection_gate_and_rectangular_engine():
         H.build_mat()
     H.allow_projection = True
     H.build_mat()
-    # a rectangular pair builds no engine yet
+    # a rectangular pair runs the ELL engine, and agrees with the oracle
     H = models.heisenberg(L)
     left, right = subspaces.SpinConserve(L, 2), subspaces.SpinConserve(L, 3)
     H.allow_projection = True
     H.add_subspace(left, right)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        H.get_mat(subspaces=(left, right))
+    assert H.get_mat(subspaces=(left, right)).engine == 'ell'
+    v = _vec(right.get_dimension(), 5)
+    psi = State(subspace=right)
+    psi.set_all_numpy(v)
+    out = State(subspace=left)
+    H.dot(psi, result=out)
+    want = H.to_numpy(subspaces=(left, right)) @ v
+    assert _rel(out.to_numpy(), want) <= 1e-12
 
 
 # -- subspaces ------------------------------------------------------------------

@@ -149,12 +149,19 @@ def test_dot_and_norm_vs_reference(space):
 
 
 def test_non_xor_pair_raises():
+    """A (Full, Parity) pair is not an XOR pair: it takes the general
+    route (ELL), not the XOR kernel, and agrees with the oracle."""
     H = models.heisenberg(L)
     H.allow_projection = True
     full, even = subspaces.Full(L=L), subspaces.Parity('even', L=L)
     H.add_subspace(full, even)
-    with pytest.raises(NotImplementedError):
-        H.get_mat(subspaces=(full, even))
+    k = H.get_mat(subspaces=(full, even))
+    assert k.engine == 'ell' and k.tables is None
+    x = np.random.RandomState(4).standard_normal((2, even.get_dimension()))
+    got = k.apply(torch.as_tensor(x)).numpy()
+    want = H.to_numpy(subspaces=(full, even)) @ (x[0] + 1j * x[1])
+    assert np.max(np.abs(got[0] + 1j * got[1] - want)) <= \
+        1e-12 * np.max(np.abs(want))
 
 
 def test_cpu_wrapper_counts_no_launch():

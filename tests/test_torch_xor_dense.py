@@ -306,10 +306,7 @@ def test_dispatch(monkeypatch):
     plain = xor_apply_reference(x, port_apply.XorTables(k.plan, k.left))
     assert _rel(k.apply(x).numpy(), plain.numpy()) <= 1e-12
 
-    H = _syk(models, 11)
-    H.add_subspace(subspaces.Parity('even', L=11))
-    with pytest.raises(NotImplementedError, match='item 10'):
-        H.get_mat()
+    _check_general_route(_syk(models, 11), subspaces.Parity('even', L=11))
 
     monkeypatch.setattr(port_apply.multihost, 'world_size', lambda: 2)
     sub = subspaces.Full(L=12)
@@ -319,8 +316,8 @@ def test_dispatch(monkeypatch):
 
 def test_disabled_engine(monkeypatch):
     """With config.use_xor_dense off, SYK runs on the XOR kernel's tables
-    where they hold it, and agrees with the oracle; past them it raises,
-    naming item 10."""
+    where they hold it, and agrees with the oracle; past them it takes the
+    general route (ELL), and agrees too."""
     monkeypatch.setattr(config, 'use_xor_dense', False, raising=False)
     H = models.syk(7)
     sub = subspaces.Parity('even', L=7)
@@ -332,10 +329,20 @@ def test_disabled_engine(monkeypatch):
     want = H.to_numpy() @ (x[0] + 1j * x[1])
     assert _rel(got[0] + 1j * got[1], want) <= 1e-12
 
-    H = _syk(models, 11)
-    H.add_subspace(subspaces.Parity('even', L=11))
-    with pytest.raises(NotImplementedError, match='item 10'):
-        H.get_mat()
+    _check_general_route(_syk(models, 11), subspaces.Parity('even', L=11))
+
+
+def _check_general_route(H, sub):
+    """A many-mask operator that neither the XOR kernel's tables nor the
+    XOR-dense engine take runs the ELL engine, and agrees with the
+    oracle."""
+    H.add_subspace(sub)
+    k = H.get_mat()
+    assert k.engine == 'ell' and k.xor_dense is None and k.tables is None
+    x = np.random.RandomState(3).standard_normal((2, sub.get_dimension()))
+    got = k.apply(torch.as_tensor(x)).numpy()
+    want = H.to_numpy() @ (x[0] + 1j * x[1])
+    assert _rel(got[0] + 1j * got[1], want) <= 1e-12
 
 
 def test_operator_calls_on_syk():
