@@ -61,8 +61,9 @@ on the same sector discovered by Auto through the ELL kernel:
    phase 6 runs both methods in float64 at L=16 against scipy's eigsh;
 10. ``general``: Auto(localized(24), 'U'*12 + 'D'*12) (the host BFS and
    the canonical order timed; dim 2,704,156, the state list
-   SpinConserve(24, 12)'s), the ELL kernel (``csrc/ell_apply.cu``) on it
-   in float32 and float64 against its plain version and cuSPARSE's SpMV,
+   SpinConserve(24, 12)'s), the ELL kernel (``csrc/ell_apply.cu``) on its
+   packed (SELL-32) tables in float32 and float64 against its plain
+   versions and cuSPARSE's SpMV, with its bound counted on nonzeros,
    the same vector through the sector engine on SpinConserve(24, 12), the
    on-the-fly sweep over the table budget, the rectangular pair
    SpinConserve(24, 11) -> SpinConserve(24, 12) (imaginary coefficients),
@@ -1962,17 +1963,19 @@ def numpy_planes(dim, dtype, seed):
     return x.contiguous()
 
 
-def ell_bound(cols, fr, fi, x, rows):
-    """The least time of one ELL apply on an H100: the bytes it must move
-    (the tables once, x read once, y written once) at HBM rate against its
-    operations (2 FMAs per table entry and plane pair, 4 with fi) at the
-    type's CUDA-core peak. Returns (ms, 'bytes' or 'operations')."""
+def ell_bound(t, x):
+    """The least time of one ELL apply over the packed tables ``t`` on an
+    H100, counted on nonzeros, so the same whatever format implements the
+    matvec: the bytes it must move (an index and one coefficient, two with
+    fi, per nonzero; x read once, y written once) at HBM rate against its
+    operations (2 FMAs per nonzero and plane pair, 4 with fi) at the type's
+    CUDA-core peak. Returns (ms, 'bytes' or 'operations')."""
     dt = str(x.dtype).replace('torch.', '')
-    tables = sum(t.numel() * t.element_size() for t in (cols, fr, fi)
-                 if t is not None)
-    nbytes = tables + x.numel() * x.element_size() \
-        + 2 * rows * x.element_size()
-    flops = cols.numel() * (8 if fi is not None else 4)
+    coeffs = 1 if t.fi is None else 2
+    per_nnz = t.cols.element_size() + coeffs * x.element_size()
+    nbytes = t.nnz * per_nnz + x.numel() * x.element_size() \
+        + 2 * t.rows * x.element_size()
+    flops = t.nnz * 4 * coeffs
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FLOPS[dt] * 1e3
     return max(by_bytes, by_ops), ('bytes' if by_bytes >= by_ops
@@ -1982,9 +1985,9 @@ def ell_bound(cols, fr, fi, x, rows):
 def ell_library_spmv(cols, fr, fi, x, y_kernel):
     """The ELL kernel's yardstick: cuSPARSE's CSR SpMV (int32 indices,
     complex in x's precision) of the same matrix, made on the card from the
-    tables' nonzero entries, times the same vector. Returns (ms,
-    max|dy|/max|y| against the kernel, nnz). The port never calls it; the
-    matrix is freed before returning."""
+    nonzero entries of the (G, rows) tables, times the same vector. Returns
+    (ms, max|dy|/max|y| against the kernel, nnz). The port never calls it;
+    the matrix is freed before returning."""
     import torch
     cdt = torch.complex64 if x.dtype == torch.float32 else torch.complex128
     vals = fr.t() if fi is None else torch.complex(fr, fi).t()
@@ -2008,58 +2011,85 @@ def ell_library_spmv(cols, fr, fi, x, y_kernel):
 
 
 def ell_record(name, kernel, dtype, seed):
-    """The ELL kernel of an operator's kernel object on its tables in
-    ``dtype``, against the plain version on the card (max|dy|/max|y| within
-    KERNEL_TOL) and cuSPARSE's SpMV of the same matrix, with times (CUDA
-    events, 3 warm-up, 20 reps; the plain version 3 reps after 1), the
-    bound and the tables' bytes and build seconds. Returns (record, x,
-    y)."""
+    """The ELL kernel of an operator's kernel object on its packed tables
+    in ``dtype``, built anew here (their seconds, the packing's, and the
+    build's device memory peak over what it keeps), against the plain
+    version over them and over the (G, rows) tables on the card
+    (max|dy|/max|y| within KERNEL_TOL) and cuSPARSE's SpMV of the same
+    matrix (within 10 KERNEL_TOL, and the same nonzero count), with times
+    (CUDA events, 3 warm-up, 20 reps; the plain version 3 reps after 1),
+    the bound on nonzeros and the tables' bytes. Returns (record, x, y)."""
     import torch
-    from dynamite_tpu_torch.ops.ell import ell_apply, ell_apply_reference
+    from dynamite_tpu_torch.ops.ell import (build_tables, ell_apply,
+                                            ell_apply_reference,
+                                            sell_apply_reference)
     dt = str(dtype).replace('torch.', '')
     x = numpy_planes(kernel.plan.dim_right, dtype, seed)
-    tables = kernel.ell_tables.on(dtype, x.device)
-    cols, fr, fi = tables
-    rows = cols.shape[1]
+    key = (dtype, x.device)
+    kernel.ell_tables.drop(dtype, x.device)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = kernel.ell_tables.on(dtype, x.device)
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() - mem0
     saved = ell_apply.launches
-    y = ell_apply(x, cols, fr, fi)
-    y_plain = ell_apply_reference(x, cols, fr, fi)
+    y = ell_apply(x, t)
+    y_plain = sell_apply_reference(x, t)
     torch.cuda.synchronize()
     if not torch.isfinite(y).all():
         raise RuntimeError(f'{name} {dt}: non-finite ELL kernel output')
     abs_err = float((y - y_plain).abs().max())
     rel_err = abs_err / float(y_plain.abs().max())
-    ms = cuda_ms(lambda: ell_apply(x, cols, fr, fi))
-    plain_ms = cuda_ms(lambda: ell_apply_reference(x, cols, fr, fi), 3, 1)
+    padded = build_tables(kernel.plan, dtype, x.device)
+    y_padded = ell_apply_reference(x, *padded)
+    padded_rel_err = float((y - y_padded).abs().max()) \
+        / float(y_padded.abs().max())
+    del y_padded
+    ms = cuda_ms(lambda: ell_apply(x, t))
+    plain_ms = cuda_ms(lambda: sell_apply_reference(x, t), 3, 1)
     ell_apply.launches = saved  # a check's launches are not the main path's
-    bound_ms, bound_by = ell_bound(cols, fr, fi, x, rows)
-    lib_ms, lib_err, lib_nnz = ell_library_spmv(cols, fr, fi, x, y)
-    table_bytes = sum(t.numel() * t.element_size() for t in tables
-                      if t is not None)
-    rec = {'case': name, 'dtype': dt, 'rows': rows,
-           'dim_right': kernel.plan.dim_right,
-           'groups': cols.shape[0], 'has_fi': fi is not None,
-           'index_dtype': str(cols.dtype).replace('torch.', ''),
-           'table_mb': table_bytes / 1e6,
-           'table_build_ms': kernel.ell_tables.build_s[(dtype, x.device)]
-           * 1e3,
+    bound_ms, bound_by = ell_bound(t, x)
+    lib_ms, lib_err, lib_nnz = ell_library_spmv(*padded, x, y)
+    padded_bytes = sum(v.numel() * v.element_size() for v in padded
+                       if v is not None)
+    del padded
+    torch.cuda.empty_cache()
+    rec = {'case': name, 'dtype': dt, 'rows': t.rows,
+           'dim_right': t.dim_right, 'groups': kernel.ell_tables.n_groups,
+           'has_fi': t.fi is not None,
+           'index_dtype': str(t.cols.dtype).replace('torch.', ''),
+           'nnz': t.nnz, 'stored_entries': t.stored,
+           'stored_over_nnz': t.stored / t.nnz, 'n_slices': t.n_slices,
+           'table_mb': t.nbytes / 1e6, 'padded_table_mb': padded_bytes / 1e6,
+           'table_build_ms': kernel.ell_tables.build_s[key] * 1e3,
+           'pack_ms': kernel.ell_tables.pack_s[key] * 1e3,
+           'build_peak_mb': build_peak / 1e6,
            'max_abs_err': abs_err, 'rel_err': rel_err,
+           'padded_rel_err': padded_rel_err,
            'tol': KERNEL_TOL[dt], 'ms': ms, 'plain_ms': plain_ms,
            'bound_ms': bound_ms, 'bound_by': bound_by,
            'bound_share': bound_ms / ms,
-           'gb_per_s': (table_bytes + 2 * (rows + kernel.plan.dim_right)
+           'gb_per_s': (t.nbytes + 2 * (t.rows + t.dim_right)
                         * x.element_size()) / (ms * 1e-3) / 1e9,
            'library_ms': lib_ms, 'library_rel_err': lib_err,
-           'library_nnz': lib_nnz}
-    if not rel_err <= KERNEL_TOL[dt]:
+           'library_nnz': lib_nnz,
+           'library_bound_share': bound_ms / lib_ms}
+    if not (rel_err <= KERNEL_TOL[dt] and padded_rel_err <= KERNEL_TOL[dt]):
         emit({'phase': 'general', 'cases': [rec]})
         raise RuntimeError(f'{name} {dt}: the ELL kernel disagrees with its '
-                           f'plain version ({rel_err:.3e})')
+                           f'plain versions ({rel_err:.3e}, '
+                           f'{padded_rel_err:.3e})')
     # the library's values and sums are in another order than the kernel's
     if not lib_err <= 10 * KERNEL_TOL[dt]:
         emit({'phase': 'general', 'cases': [rec]})
         raise RuntimeError(f'{name} {dt}: the CSR yardstick disagrees with '
                            f'the ELL kernel ({lib_err:.3e})')
+    if t.nnz != lib_nnz:
+        emit({'phase': 'general', 'cases': [rec]})
+        raise RuntimeError(f'{name} {dt}: the packed tables keep {t.nnz} '
+                           f'entries, the CSR {lib_nnz}')
     return rec, x, y
 
 
@@ -2069,9 +2099,10 @@ def phase_general(L=24):
     1. ``Auto(localized(24), 'U'*12 + 'D'*12)``: the host BFS and the
        canonical order timed apart, its dimension C(24, 12) and its state
        list equal to SpinConserve(24, 12)'s;
-    2. the ELL kernel on it (float32 and float64) against its plain version
-       and cuSPARSE (:func:`ell_record`), and the same vector through the
-       sector engine on SpinConserve(24, 12), with both engines' ms;
+    2. the ELL kernel on its packed tables (float32 and float64) against
+       its plain versions and cuSPARSE (:func:`ell_record`: the nonzero
+       counts equal, the bound on nonzeros), and the same vector through
+       the sector engine on SpinConserve(24, 12), with both engines' ms;
     3. over the budget: the on-the-fly sweep (``general_sweep``), its ms,
        its launches per apply (torch.profiler), against the kernel;
     4. the rectangular pair SpinConserve(24, 11) -> SpinConserve(24, 12) of
@@ -2082,7 +2113,8 @@ def phase_general(L=24):
        half-chain entropy of its ground state on the card, and evolve(t=1)
        of a numpy-seeded state on Auto(24) against the same evolve on
        SpinConserve(24, 12);
-    6. estimate_memory against the build's measured device bytes.
+    6. estimate_memory against the build's measured device bytes, and
+       the estimate taken before the build not below them.
 
     Returns (the kernel records, the ELL launches of the main-path solves,
     the phase record)."""
@@ -2095,6 +2127,7 @@ def phase_general(L=24):
     from dynamite_tpu_torch.models import localized
     from dynamite_tpu_torch.operators import (index_sum, sigma_minus,
                                               sigma_plus)
+    from dynamite_tpu_torch.ops.ell import table_bytes
     from dynamite_tpu_torch.states import State
 
     seed_state = 'U' * (L // 2) + 'D' * (L // 2)
@@ -2124,15 +2157,26 @@ def phase_general(L=24):
                            f'to SpinConserve({L}, {L // 2})\'s: {same}')
     del found, ordered
 
-    # 2. the ELL kernel on Auto(24), and the sector engine on SC(24, 12)
+    # 2. the ELL kernel on Auto(24), and the sector engine on SC(24, 12);
+    # the memory estimate before the build counts the most the tables can
+    # take, and the build's bytes include the index maps the estimate makes
     H.add_subspace(auto)
+    # cuBLAS takes its workspace from the same allocator at its first call
+    # (the build's float64 products, when this phase runs alone): not the
+    # build's
+    one = torch.ones((2, 2), dtype=torch.float64, device='cuda')
+    torch.mm(one, one)
+    del one
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
+    rec['estimate_before_build_bytes'] = H.estimate_memory() * 1e9
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     kernel = H.get_mat()
     torch.cuda.synchronize()
     rec['build_s'] = time.perf_counter() - t0
     rec['build_device_bytes'] = torch.cuda.memory_allocated() - mem0
+    rec['build_peak_bytes'] = torch.cuda.max_memory_allocated() - mem0
     if kernel.engine != 'ell':
         raise RuntimeError(f'Auto({L}): the {kernel.engine} route, not ELL')
     cases = []
@@ -2159,7 +2203,7 @@ def phase_general(L=24):
 
     # 3. over the budget: the on-the-fly sweep
     saved_budget = config.ell_budget
-    config.ell_budget = r32['table_mb'] * 1e6 - 1
+    config.ell_budget = table_bytes(kernel.plan) - 1
     try:
         H_sw = localized(L)
         H_sw.add_subspace(auto)
@@ -2258,6 +2302,11 @@ def phase_general(L=24):
     if not rec['estimate_rel_err'] <= ESTIMATE_RTOL:
         raise RuntimeError(f'estimate_memory {est:.4g} bytes against the '
                            f'measured {rec["build_device_bytes"]}')
+    if not rec['estimate_before_build_bytes'] >= rec['build_device_bytes']:
+        raise RuntimeError(f'estimate_memory before the build, '
+                           f'{rec["estimate_before_build_bytes"]:.4g} bytes, '
+                           f'is below the build\'s '
+                           f'{rec["build_device_bytes"]}')
     del H, H_sc, k_sc, v, evecs, psi, psi_sc, r, r_sc
     torch.cuda.empty_cache()
     launches = eig_launches['ell_apply'] + ev_launches['ell_apply']

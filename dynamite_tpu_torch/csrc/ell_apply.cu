@@ -1,9 +1,14 @@
 // The ELL matvec of the general subspace engine, for Hopper (sm_90a):
 //
-//     y[:, r] = sum_g (fr[g, r] + i fi[g, r]) * x[:, cols[g, r]]
+//     y[:, r] = sum_j (fr[e] + i fi[e]) * x[:, cols[e]],  e = e(r, j)
 //
-// over (2, dim) re/im planes in float32 or float64, with (G, rows) tables
-// built on the device by dynamite_tpu_torch/ops/ell.py::build_tables.
+// over (2, dim) re/im planes in float32 or float64, with sliced ELL tables
+// (SELL-32) built on the device by dynamite_tpu_torch/ops/ell.py
+// (build_packed: build_tables' rows, packed by pack_tables): slice s holds
+// the lanes_s rows from 32s (32, the last slice the rows left) in width_s =
+// (slice_ptr[s + 1] - slice_ptr[s]) / lanes_s steps, entry j of row 32s + l
+// at slice_ptr[s] + lanes_s j + l, each row's nonzero entries in ascending
+// mask-group order, shorter rows padded with column 0 and coefficient 0.
 //
 // Replaces: dynamite_tpu/ops/ell.py:252 make_apply, the XLA lax.scan of
 // x[:, cols] gathers and einsums that the JAX package reaches from
@@ -11,18 +16,41 @@
 // a Pallas kernel; it gets a kernel here because a chain of torch ops would
 // be bound by launches on the card, as the sector engine is.
 //
-// Bound: bytes. Each apply streams the tables once (an index and one or two
-// coefficients per row and group), reads x and writes y, at 3.35 TB/s; the
-// arithmetic is 4 (8 with fi) flops per table entry. For localized(24) on
-// Auto(24) (24 groups, 2,704,156 rows, real coefficients) that is 519 MB of
-// tables and 43 MB of x and y in float32, about 0.17 ms.
+// Bound: bytes, counted on nonzeros, whatever the format: an index and one
+// coefficient (two with fi) per nonzero, x read once and y written once,
+// at 3.35 TB/s. For localized(24) on Auto(24) (35,154,028 nonzeros,
+// 2,704,156 rows, real coefficients) that is 0.0969 ms in float32 and
+// 0.1518 ms in float64. The arithmetic is 4 (8 with fi) flops a nonzero.
 //
-// Design, simple first: one thread per row, a grid-stride loop over rows;
-// each thread walks the G groups in order, reading cols, fr (and fi)
-// coalesced across the warp from the (G, rows) layout, gathers both planes
-// of x[col], sums in registers in the working type and writes y once.
-// Nothing is atomic and the order of the sum over g is fixed. A template
-// flag drops every fi read for real operators.
+// What the design does about it:
+// 1. No padding streamed: the (G, rows) tables of that operator hold 46%
+//    zeros (partners outside the subspace); the slices keep each row's
+//    nonzeros and pad only to their widest row (1.17x nnz there). One warp
+//    takes a slice, one lane a row, in a grid-stride loop over slices; the
+//    loop over a slice's width is uniform across the warp (but for the
+//    last slice's missing rows), each step reads 128 B (float32) of each
+//    table, coalesced, and y is written once.
+// 2. The tables stream past L2: they are read with the evict-first,
+//    streaming hint (__ldcs), and x through the read-only path with an
+//    L2 evict-last policy (createpolicy, ld.global.nc.L2::cache_hint), so
+//    the 330-650 MB of tables do not wash out the 21.6 / 43 MB vector that
+//    every entry gathers from. No device-global L2 setting and no stream
+//    attribute is touched.
+// 3. Memory-level parallelism: a lane starts the table loads of kUnroll
+//    entries, then their gathers of x, then the sums, in ascending order
+//    into one accumulator (the order of the plain version). kUnroll = 4
+//    and a register cap (kMinBlocks: 6 blocks an SM in float32, 3 in
+//    float64) keep 48 (24) warps an SM in flight; chip_smoke.py's ptxas
+//    lines give the registers.
+//
+// x stays in its two planes, two gathers an entry: an interleaved (re, im)
+// copy made by a pre-pass gathers one pair instead, but was slower on every
+// case measured, as was the same kernel without the cache hints (PERF.md,
+// section 6).
+//
+// Dropping the zero entries changes only how a non-finite x[0] reaches the
+// rows that the (G, rows) tables padded: for finite x, fma(0, v, y) == y,
+// so the result equals the padded tables' sum up to the sign of zero.
 //
 // Plain C interface, loaded with ctypes (dynamite_tpu_torch/ops/ell.py);
 // built with nvcc -gencode arch=compute_90a,code=sm_90a -shared.
@@ -32,78 +60,156 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 16;
+constexpr int kSlice = 32;      // rows per slice: one warp, a lane a row
+constexpr int kThreads = 256;   // eight warps a block
+constexpr int kUnroll = 4;      // entries a lane has in flight
+
+// resident blocks an SM that the register cap aims at
+template <typename T>
+constexpr int kMinBlocks = sizeof(T) == 4 ? 6 : 3;
+
+__device__ __forceinline__ uint64_t evict_last_policy()
+{
+    uint64_t policy;
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+        : "=l"(policy));
+    return policy;
+}
+
+// x: read-only path, L2 evict-last
+__device__ __forceinline__ float load_x(const float* p, uint64_t policy)
+{
+    float v;
+    asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
+        : "=f"(v) : "l"(p), "l"(policy));
+    return v;
+}
+
+__device__ __forceinline__ double load_x(const double* p, uint64_t policy)
+{
+    double v;
+    asm("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;"
+        : "=d"(v) : "l"(p), "l"(policy));
+    return v;
+}
+
+// tables: streamed (evict-first)
+__device__ __forceinline__ float load_t(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ double load_t(const double* p)
+{
+    return __ldcs(p);
+}
+__device__ __forceinline__ int32_t load_t(const int32_t* p)
+{
+    return __ldcs(p);
+}
+__device__ __forceinline__ int64_t load_t(const int64_t* p)
+{
+    return __ldcs(reinterpret_cast<const long long*>(p));
+}
 
 template <typename T, typename I, bool kImag>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
 ell_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
+                 const long long* __restrict__ slice_ptr,
                  const I* __restrict__ cols, const T* __restrict__ fr,
-                 const T* __restrict__ fi, int64_t rows, int64_t dim_right,
-                 int groups)
+                 const T* __restrict__ fi, int64_t rows, int64_t n_slices,
+                 int64_t dim_right)
 {
+    const int lane = threadIdx.x % kSlice;
+    const int64_t warps = (int64_t)gridDim.x * (kThreads / kSlice);
+    const uint64_t policy = evict_last_policy();
     const T* __restrict__ xr = x;
     const T* __restrict__ xi = x + dim_right;
-    const int64_t stride = (int64_t)gridDim.x * kThreads;
-    for (int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x; r < rows;
-         r += stride) {
+    for (int64_t s = (int64_t)blockIdx.x * (kThreads / kSlice)
+                     + threadIdx.x / kSlice;
+         s < n_slices; s += warps) {
+        const int64_t begin = __ldg(slice_ptr + s);
+        const int64_t left = rows - s * kSlice;
+        const int lanes = left < kSlice ? (int)left : kSlice;
+        if (lane >= lanes) continue;  // the last slice's missing rows
+        const int width = (int)((__ldg(slice_ptr + s + 1) - begin) / lanes);
+        const int64_t base = begin + lane;
         T yr = 0, yi = 0;
-#pragma unroll 4
-        for (int g = 0; g < groups; ++g) {
-            const int64_t e = (int64_t)g * rows + r;
-            const int64_t c = (int64_t)cols[e];
-            const T a = fr[e];
-            const T vr = xr[c];
-            const T vi = xi[c];
-            yr = fma(a, vr, yr);
-            yi = fma(a, vi, yi);
-            if (kImag) {
-                const T b = fi[e];
-                yr = fma(-b, vi, yr);
-                yi = fma(b, vr, yi);
+        for (int j = 0; j < width; j += kUnroll) {
+            I c[kUnroll];
+            T a[kUnroll], b[kUnroll], vr[kUnroll], vi[kUnroll];
+#pragma unroll
+            for (int k = 0; k < kUnroll; ++k) {
+                if (j + k < width) {
+                    const int64_t e = base + (int64_t)(j + k) * lanes;
+                    c[k] = load_t(cols + e);
+                    a[k] = load_t(fr + e);
+                    if constexpr (kImag) b[k] = load_t(fi + e);
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < kUnroll; ++k) {
+                if (j + k < width) {
+                    vr[k] = load_x(xr + c[k], policy);
+                    vi[k] = load_x(xi + c[k], policy);
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < kUnroll; ++k) {
+                if (j + k < width) {
+                    yr = fma(a[k], vr[k], yr);
+                    yi = fma(a[k], vi[k], yi);
+                    if constexpr (kImag) {
+                        yr = fma(-b[k], vi[k], yr);
+                        yi = fma(b[k], vr[k], yi);
+                    }
+                }
             }
         }
+        const int64_t r = s * kSlice + lane;
         y[r] = yr;
         y[rows + r] = yi;
     }
 }
 
 template <typename T, typename I, bool kImag>
-int launch(const void* x, void* y, const void* cols, const void* fr,
-           const void* fi, int64_t rows, int64_t dim_right, int groups,
-           cudaStream_t stream)
+int launch(const void* x, void* y, const void* slice_ptr, const void* cols,
+           const void* fr, const void* fi, int64_t rows, int64_t n_slices,
+           int64_t dim_right, cudaStream_t stream)
 {
     int device = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return (int)err;
-    const int64_t need = (rows + kThreads - 1) / kThreads;
-    const int64_t cap = (int64_t)sms * kBlocksPerSm;
-    const unsigned blocks = (unsigned)(need < cap ? need : cap);
-    ell_apply_kernel<T, I, kImag><<<blocks, kThreads, 0, stream>>>(
+    int err = (int)cudaGetDevice(&device);
+    if (err != 0) return err;
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      device);
+    if (err != 0) return err;
+    // resident blocks an SM, once per instantiation: the grid fills the
+    // card once and strides over the slices
+    static int per_sm = 0;
+    if (per_sm == 0) {
+        err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, ell_apply_kernel<T, I, kImag>, kThreads, 0);
+        if (err != 0) return err;
+    }
+    const int64_t need = (n_slices + kThreads / kSlice - 1)
+                         / (kThreads / kSlice);
+    const int64_t cap = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    ell_apply_kernel<T, I, kImag>
+        <<<(unsigned)(need < cap ? need : cap), kThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<T*>(y),
+        static_cast<const long long*>(slice_ptr),
         static_cast<const I*>(cols), static_cast<const T*>(fr),
-        static_cast<const T*>(fi), rows, dim_right, groups);
+        static_cast<const T*>(fi), rows, n_slices, dim_right);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int idx64, int has_fi, const void* x, void* y, const void* cols,
-             const void* fr, const void* fi, int64_t rows, int64_t dim_right,
-             int groups, cudaStream_t stream)
+template <typename T, typename I>
+int dispatch_imag(int has_fi, const void* x, void* y, const void* slice_ptr,
+                  const void* cols, const void* fr, const void* fi,
+                  int64_t rows, int64_t n_slices, int64_t dim_right,
+                  cudaStream_t stream)
 {
-    if (idx64) {
-        return has_fi ? launch<T, int64_t, true>(x, y, cols, fr, fi, rows,
-                                                 dim_right, groups, stream)
-                      : launch<T, int64_t, false>(x, y, cols, fr, fi, rows,
-                                                  dim_right, groups, stream);
-    }
-    return has_fi ? launch<T, int32_t, true>(x, y, cols, fr, fi, rows,
-                                             dim_right, groups, stream)
-                  : launch<T, int32_t, false>(x, y, cols, fr, fi, rows,
-                                              dim_right, groups, stream);
+    return has_fi
+        ? launch<T, I, true>(x, y, slice_ptr, cols, fr, fi, rows, n_slices,
+                             dim_right, stream)
+        : launch<T, I, false>(x, y, slice_ptr, cols, fr, fi, rows, n_slices,
+                              dim_right, stream);
 }
 
 }  // namespace
@@ -114,17 +220,19 @@ extern "C" {
 // (else int32); has_fi: read the imaginary table. Returns the CUDA error
 // code of the launch (0 on success).
 int ell_apply_launch(int is_f64, int idx64, int has_fi, const void* x,
-                     void* y, const void* cols, const void* fr,
-                     const void* fi, int64_t rows, int64_t dim_right,
-                     int groups, void* stream)
+                     void* y, const void* slice_ptr, const void* cols,
+                     const void* fr, const void* fi, int64_t rows,
+                     int64_t n_slices, int64_t dim_right, void* stream)
 {
     if (rows <= 0) return 0;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (is_f64)
-        return dispatch<double>(idx64, has_fi, x, y, cols, fr, fi, rows,
-                                dim_right, groups, s);
-    return dispatch<float>(idx64, has_fi, x, y, cols, fr, fi, rows,
-                           dim_right, groups, s);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    auto* f = is_f64
+        ? (idx64 ? dispatch_imag<double, int64_t>
+                 : dispatch_imag<double, int32_t>)
+        : (idx64 ? dispatch_imag<float, int64_t>
+                 : dispatch_imag<float, int32_t>);
+    return f(has_fi, x, y, slice_ptr, cols, fr, fi, rows, n_slices,
+             dim_right, st);
 }
 
 const char* ell_apply_error_string(int err)

@@ -531,8 +531,13 @@ class Operator:
         (left, right) pair in ``config.real_dtype``: the XOR kernel's
         diagonal stream (one plane, two with an imaginary diagonal), the
         XOR-dense channels, the sector engine's matrices (every rank), or
-        the ELL tables (an index and one coefficient per row and group, two
-        with imaginary coefficients); nothing for the on-the-fly sweep."""
+        the ELL tables; nothing for the on-the-fly sweep. The packed ELL
+        tables' size depends on the data: before the pair's kernel has
+        built them on ``config.device`` this counts the most they can take
+        (:func:`.ops.ell.packed_bound`: an index and one coefficient, two
+        with imaginary coefficients, per group and row over whole 32-row
+        slices, and the slice pointers), and after that the bytes they
+        hold (:meth:`.ops.ell.EllTables.nbytes`)."""
         from .ops import ell as ell_mod
         from .ops.apply import _kernel_holds, _Plan
         from .ops.sector_apply import (TABLE_BUDGET, sector_supported,
@@ -562,7 +567,11 @@ class Operator:
                 return est * mpi_size  # replicated on every rank
         if config.use_ell \
                 and ell_mod.table_bytes(plan) <= ell_mod.ell_budget():
-            return ell_mod.EllTables(plan).nbytes(config.real_dtype)
+            kernel = self._kernels.get((left, right))
+            tables = (kernel.ell_tables if kernel is not None
+                      and kernel.ell_tables is not None
+                      else ell_mod.EllTables(plan))
+            return tables.nbytes(config.real_dtype, config.device)
         return 0
 
     def spy(self, subspaces=None, max_size=1024):

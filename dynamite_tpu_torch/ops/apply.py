@@ -327,7 +327,7 @@ class OperatorKernel:
                 return sector_apply(x, self.sector_tables)
             if self.ell_tables is not None:
                 tables = self.ell_tables.on(x.dtype, x.device)
-                return ell.ell_apply(x, *tables)
+                return ell.ell_apply(x, tables)
             if not self.plan.groups:
                 return x.new_zeros((2, self.plan.dim_left))
             return general_sweep(x, self.plan)

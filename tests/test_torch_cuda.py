@@ -5,7 +5,9 @@ vector) and on XParity spaces, the sector and XOR-dense engines against
 their plain versions, Operator.dot / evolve / eigsolve through them, the
 RDM's device route and the entropy on the card against the host routes,
 the MINRES inner solve and eigsolve(target=) against the same calls on the
-CPU, the ELL kernel (``csrc/ell_apply.cu``) against its plain version and
+CPU, the ELL kernel (``csrc/ell_apply.cu``) over the packed tables against
+their plain version and the (G, rows) tables' (operators' tables and
+synthetic ones: a width-0 slice, a ragged last slice, int64 columns), and
 Explicit/Auto/rectangular pairs through it, memory tracking, and the
 distributed path on NCCL when the machine has two GPUs or more.
 
@@ -495,39 +497,112 @@ def _ell_kernel(case, L=11):
 @pytest.mark.parametrize('case', ['auto', 'rect', 'full_from_even',
                                   'odd_rows'])
 def test_ell_kernel_vs_plain_on_card(card, case, dtype):
-    from dynamite_tpu_torch.ops.ell import ell_apply, ell_apply_reference
+    """The kernel over the packed tables against their plain version and
+    the plain version over the (G, rows) tables; the operator's apply
+    counts one launch per matvec."""
+    from dynamite_tpu_torch.ops import ell
     H, left, right, k = _ell_kernel(case)
-    cols, fr, fi = k.ell_tables.on(dtype, card)
-    assert cols.is_cuda and cols.dtype == torch.int32
-    assert (fi is not None) is (case == 'rect')
+    t = k.ell_tables.on(dtype, card)
+    assert t.cols.is_cuda and t.cols.dtype == torch.int32
+    assert (t.fi is not None) is (case == 'rect')
     x = torch.as_tensor(_planes(right.get_dimension(), seed=8), dtype=dtype,
                         device=card)
-    before = ell_apply.launches
-    y = ell_apply(x, cols, fr, fi)
+    before = ell.ell_apply.launches
+    y = ell.ell_apply(x, t)
     torch.cuda.synchronize()
-    assert ell_apply.launches == before + 1
-    y_plain = ell_apply_reference(x, cols, fr, fi)
+    assert ell.ell_apply.launches == before + 1
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert y.shape == (2, left.get_dimension()) and y.dtype == dtype
-    assert float((y - y_plain).abs().max()) <= \
-        tol * float(y_plain.abs().max())
+    for y_plain in (ell.sell_apply_reference(x, t),
+                    ell.ell_apply_reference(
+                        x, *ell.build_tables(k.plan, dtype, card))):
+        assert float((y - y_plain).abs().max()) <= \
+            tol * float(y_plain.abs().max())
     # the operator's apply launches the same kernel, once
     y2 = k.apply(x)
-    assert ell_apply.launches == before + 2
+    assert ell.ell_apply.launches == before + 2
     assert torch.equal(y2, y)
+
+
+@pytest.mark.parametrize('case', ['auto', 'rect'])
+def test_ell_build_packed_on_card(card, case, monkeypatch):
+    """The build that packs each block of rows as it computes it, in
+    blocks of 32 rows, equals packing the whole (G, rows) tables, with the
+    same conservation flag."""
+    from dynamite_tpu_torch.ops import ell
+    _H, _l, _r, k = _ell_kernel(case)
+    *tables, conserved = ell.build_tables(k.plan, torch.float32, card,
+                                          with_conserves=True)
+    want = ell.pack_tables(*tables, k.plan.dim_right)
+    monkeypatch.setattr(ell, 'BUILD_CHUNK_BITS', 5)
+    t, flag, _pack_s = ell.build_packed(k.plan, torch.float32, card,
+                                        with_conserves=True)
+    assert flag is conserved and t.n_slices > 1
+    for got, ref in zip(t, want):
+        if isinstance(ref, torch.Tensor):
+            assert got.is_cuda and torch.equal(got, ref)
+        else:
+            assert got == ref
+
+
+def _synthetic_tables(layout, dtype, device):
+    """Packed tables of (G, rows) tables drawn with numpy, about half the
+    entries zero: 'empty_slice' (rows 32-63 without an entry: a width-0
+    slice), 'ragged' (45 rows: a last slice of 13),
+    'int64' (int64 columns and an fi table)."""
+    from dynamite_tpu_torch.ops import ell
+    G, rows, dim_right = {'empty_slice': (6, 100, 40), 'ragged': (5, 45, 17),
+                          'int64': (4, 77, 50)}[layout]
+    rng = np.random.RandomState(rows)
+    keep = rng.random_sample((G, rows)) < 0.5
+    if layout == 'empty_slice':
+        keep[:, 32:64] = False
+    cols = torch.as_tensor(np.where(keep, rng.randint(0, dim_right,
+                                                      (G, rows)), 0),
+                           dtype=(torch.int64 if layout == 'int64'
+                                  else torch.int32), device=device)
+    fr, fi = (torch.as_tensor(np.where(keep, rng.standard_normal((G, rows)),
+                                       0), dtype=dtype, device=device)
+              for _ in range(2))
+    tables = (cols, fr, fi if layout == 'int64' else None)
+    return tables, ell.pack_tables(*tables, dim_right)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('layout', ['empty_slice', 'ragged', 'int64'])
+def test_ell_kernel_synthetic_on_card(card, layout, dtype):
+    from dynamite_tpu_torch.ops import ell
+    tables, t = _synthetic_tables(layout, dtype, card)
+    if layout == 'empty_slice':
+        assert t.slice_ptr[2] == t.slice_ptr[1]
+    x = torch.as_tensor(_planes(t.dim_right, seed=9), dtype=dtype,
+                        device=card)
+    y = ell.ell_apply(x, t)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for y_plain in (ell.sell_apply_reference(x, t),
+                    ell.ell_apply_reference(x, *tables)):
+        assert float((y - y_plain).abs().max()) <= \
+            tol * float(y_plain.abs().max())
+    if layout == 'empty_slice':
+        assert not y[:, 32:64].any()
 
 
 def test_ell_kernel_refuses_bad_inputs(card):
     from dynamite_tpu_torch.ops.ell import ell_apply
     _H, _l, right, k = _ell_kernel('auto')
-    cols, fr, fi = k.ell_tables.on(torch.float32, card)
+    t = k.ell_tables.on(torch.float32, card)
     x = torch.zeros((2, right.get_dimension()), device=card)
     with pytest.raises(TypeError):
-        ell_apply(x.double(), cols, fr, fi)
+        ell_apply(x.double(), t)
+    with pytest.raises(TypeError):
+        ell_apply(x, t._replace(fr=t.fr.double()))
     with pytest.raises(ValueError):
-        ell_apply(x, cols.t(), fr, fi)
+        ell_apply(x[:, 1:].contiguous(), t)
     with pytest.raises(ValueError):
-        ell_apply(x, cols.cpu(), fr, fi)
+        ell_apply(x, t._replace(cols=t.cols[:-1]))
+    with pytest.raises(ValueError):
+        ell_apply(x, t._replace(cols=t.cols.cpu()))
 
 
 def test_ell_evolve_and_eigsolve_on_card(card):

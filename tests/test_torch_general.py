@@ -216,8 +216,9 @@ def _reference_apply(name, ref_plan, H_ref, left_ref, right_ref, vec):
 
 @pytest.mark.parametrize('name', CASES)
 def test_applies_match_reference(name):
-    """ell_apply (its plain version on the CPU), ell_apply_reference and
-    general_sweep against the JAX package's apply and the numpy oracle
+    """ell_apply over the packed tables (its plain version on the CPU),
+    sell_apply_reference, ell_apply_reference over the (G, rows) tables
+    and general_sweep against the JAX package's apply and the numpy oracle
     (``to_numpy``), in float64 and float32."""
     plan, ref_plan, H, left, right, H_ref, left_ref, right_ref = \
         _plans(name)
@@ -234,8 +235,10 @@ def test_applies_match_reference(name):
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         x = torch.as_tensor(np.stack([vec.real, vec.imag]), dtype=dtype)
         tables = kernel.ell_tables.on(dtype, 'cpu')
-        for y in (ell.ell_apply(x, *tables),
-                  ell.ell_apply_reference(x, *tables),
+        for y in (ell.ell_apply(x, tables),
+                  ell.sell_apply_reference(x, tables),
+                  ell.ell_apply_reference(
+                      x, *ell.build_tables(plan, dtype, 'cpu')),
                   general_sweep(x, plan)):
             assert y.dtype == dtype and y.shape == (2, left.get_dimension())
             y = y.double().numpy()
@@ -244,10 +247,11 @@ def test_applies_match_reference(name):
 
 def test_cpu_wrapper_counts_no_launch():
     plan = _plans('auto')[0]
-    tables = ell.build_tables(plan, torch.float64, 'cpu')
+    tables = ell.pack_tables(*ell.build_tables(plan, torch.float64, 'cpu'),
+                             plan.dim_right)
     before = ell.ell_apply.launches
     ell.ell_apply(torch.zeros((2, plan.dim_right), dtype=torch.float64),
-                  *tables)
+                  tables)
     assert ell.ell_apply.launches == before
 
 
@@ -334,42 +338,53 @@ def _estimate_case(name, sp, m, o):
 @pytest.mark.parametrize('name', ['sector', 'rectangular', 'full_to_even',
                                   'xor', 'auto'])
 def test_estimate_memory_matches_reference(name):
-    """Where both packages build the same tables (the sector engine, ELL
-    with imaginary coefficients) the estimates are equal. The port counts
-    what it builds: no fi table for real coefficients, one plane of the
-    XOR diagonal stream for a real diagonal, an Explicit subspace's state
-    tables once per array (the JAX package counts fi and two planes
-    always, and a square pair's tables twice)."""
+    """Where both packages build the same tables (the sector engine) the
+    estimates are equal. The port counts what it builds: no fi table for
+    real coefficients, one plane of the XOR diagonal stream for a real
+    diagonal, an Explicit subspace's state tables once per array (the JAX
+    package counts fi and two planes always, and a square pair's tables
+    twice); before the build, the most its packed ELL tables can take
+    (``ell.packed_bound``: the (G, rows) count and the slice pointers),
+    and after it the bytes they hold, never more."""
     H = _estimate_case(name, subspaces, models, ops)
     H_ref = _estimate_case(name, ref_subspaces, ref_models, ref_ops)
     got, want = H.estimate_memory(1), H_ref.estimate_memory(1)
     plan = _Plan(H._msc_on(H.left_subspace), H.left_subspace,
                  H.right_subspace)
     cb = 8  # float64
-    if name in ('sector', 'rectangular'):
+    G, rows = len(plan.groups), plan.dim_left
+    slices = 8 * (-(-rows // ell.SLICE) + 1)  # the slice pointers
+    if name == 'sector':
         assert got == want
+    elif name == 'rectangular':
+        assert got - want == pytest.approx(slices / 1e9, rel=1e-12)
     elif name == 'full_to_even':
-        assert want - got == pytest.approx(
-            len(plan.groups) * plan.dim_left * cb / 1e9, rel=1e-12)
-    elif name == 'xor':
-        assert want - got == pytest.approx(plan.dim_left * cb / 1e9,
+        assert want - got == pytest.approx((G * rows * cb - slices) / 1e9,
                                            rel=1e-12)
+    elif name == 'xor':
+        assert want - got == pytest.approx(rows * cb / 1e9, rel=1e-12)
     else:
         sub = H.left_subspace
         maps = sum(a.nbytes for a in (sub.state_map, sub.rmap_states,
                                       sub.rmap_indices) if a is not None)
         assert want - got == pytest.approx(
-            (len(plan.groups) * plan.dim_left * cb + maps) / 1e9, rel=1e-12)
+            (G * rows * cb + maps - slices) / 1e9, rel=1e-12)
     # the measured tables of the ELL build
     kernel = H.get_mat(subspaces=(H.left_subspace, H.right_subspace))
+    after = H.estimate_memory(1)
     if kernel.engine == 'ell':
-        built = sum(t.numel() * t.element_size()
-                    for t in kernel.ell_tables.on(torch.float64, 'cpu')
-                    if t is not None)
-        assert built == kernel.ell_tables.nbytes(torch.float64)
+        t = kernel.ell_tables.on(torch.float64, 'cpu')
+        built = sum(v.numel() * v.element_size()
+                    for v in (t.slice_ptr, t.cols, t.fr, t.fi)
+                    if v is not None)
+        assert built == kernel.ell_tables.nbytes(torch.float64) \
+            == H._engine_table_bytes(1)
+        assert built <= ell.packed_bound(plan, torch.float64)
+    assert got >= after
     # the Krylov workspace
-    assert (H.estimate_memory(1, ncv=20) - got) == pytest.approx(
-        H_ref.estimate_memory(1, ncv=20) - want, rel=1e-12)
+    assert (H.estimate_memory(1, ncv=20) - after) == pytest.approx(
+        H_ref.estimate_memory(1, ncv=20) - H_ref.estimate_memory(1),
+        rel=1e-12)
 
 
 def test_spy(monkeypatch):
