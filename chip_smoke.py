@@ -70,18 +70,32 @@ on the same sector discovered by Auto through the ELL kernel:
    eigsolve/entropy/evolve on Auto(24) against the JAX package's float64
    values and the SpinConserve evolve, and estimate_memory against the
    build's device bytes (see phase_general);
-11. ``distributed``: one child process per GPU, on NCCL, runs evolve and
-   eigsolve at L=24 through the sharded route (one rank on a one-GPU
-   machine: no exchange), and with two GPUs or more holds the gathered
-   ``H.dot`` against the one-device route.
+11. ``general_sharded``: the general routes over P virtual ranks of one
+   card (ops/apply.py's VirtualTransport, the per-rank code a process
+   group runs): localized(24) on Auto(24) through each rank's ELL tables at
+   P = 2, 3, 4, 8 (each rank's ``ell_apply`` against its plain version,
+   bitwise against the one-device kernel, per-rank and summed ms, bytes
+   and bounds), evolve(t=1) through it at P = 4 (its launches counted),
+   heisenberg(24) and localized(24) on SpinConserve(24, 12) through the
+   sector engine's alpha ring at P = 2, 3, 4 against the one-device
+   engine, and both sweeps at L=20 (see phase_general_sharded);
+12. ``distributed``: one child process per GPU, on NCCL, runs evolve and
+   eigsolve at L=24 on Full(24) through the sharded XOR route (one rank on
+   a one-GPU machine: no exchange), with two GPUs or more holds the
+   gathered ``H.dot`` against the one-device route, then eigsolve (with
+   the entropy) and evolve of localized(24) on SpinConserve(24, 12)
+   through the alpha ring and through each rank's ELL tables, and over
+   two ranks or more SpinConserve(26, 13) through ELL; with three GPUs or
+   more a second spawn at world 3 runs the general pairs on the padded
+   layout (see distributed_general).
 
 Each phase prints one JSON line (the sector and XOR-dense engines'
 records also one ``{"engines": [...]}`` line), with the device memory peak
 of its solves (``tools.get_memory_usage``); any failure raises (non-zero
 exit). The last
 lines are the card's ``nvidia-smi`` name and power limit, the kernel records
-(the matvec kernel on each route, the diagonal kernel and the ELL kernel),
-and
+(the matvec kernel on each route, the diagonal kernel and the ELL kernel
+on one device and on each rank's tables), and
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is available or the package is missing.
 
@@ -102,7 +116,8 @@ times the XOR-dense engine at every split La (see xor_dense_la_sweep).
 
     python3 chip_smoke.py --general
 
-runs the environment and the general phase alone (see phase_general).
+runs the environment, the general phase and the general routes over
+virtual ranks alone (see phase_general, phase_general_sharded).
 """
 
 import json
@@ -778,10 +793,11 @@ def counted(fn, what, engine='xor'):
     the matvec kernel) and ``xor_diagonal.launches`` (the diagonal stream's
     builds, once per operator, dtype and layout), and beside them the
     engines' applies (``sector_apply.applies``, ``xor_dense_apply.applies``,
-    ``general_sweep.applies``; torch ops, no kernel of their own), the ELL
-    kernel's launches (``ell_apply.launches``), and the MINRES iterations
-    of a target solve (``minres_solver.iterations``, one H apply each).
-    Raises unless the ``engine`` ('xor', 'sector', 'xor_dense', 'ell' or
+    ``general_sweep.applies``, the alpha ring's ``SectorRing.applies``;
+    torch ops, no kernel of their own), the ELL kernel's launches
+    (``ell_apply.launches``), and the MINRES iterations of a target solve
+    (``minres_solver.iterations``, one H apply each). Raises unless the
+    ``engine`` ('xor', 'sector', 'sector_ring', 'xor_dense', 'ell' or
     'sweep') ran at least once per matvec the solver counted, and, for any
     other engine, unless the XOR kernel did not run. Returns (fn's result,
     {name: count}, solver stats, wall seconds)."""
@@ -790,6 +806,7 @@ def counted(fn, what, engine='xor'):
     from dynamite_tpu_torch.ops.apply import general_sweep
     from dynamite_tpu_torch.ops.ell import ell_apply
     from dynamite_tpu_torch.ops.sector_apply import sector_apply
+    from dynamite_tpu_torch.ops.sector_shard import SectorRing
     from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded,
                                                   xor_diagonal)
     from dynamite_tpu_torch.ops.xor_dense import xor_dense_apply
@@ -798,6 +815,7 @@ def counted(fn, what, engine='xor'):
     xor_apply_sharded.launches = 0
     xor_diagonal.launches = 0
     sector_apply.applies = 0
+    SectorRing.applies = 0
     xor_dense_apply.applies = 0
     ell_apply.launches = 0
     general_sweep.applies = 0
@@ -809,12 +827,14 @@ def counted(fn, what, engine='xor'):
     launches = {'xor_apply': xor_apply_sharded.launches,
                 'xor_diagonal': xor_diagonal.launches,
                 'sector_apply': sector_apply.applies,
+                'sector_ring': SectorRing.applies,
                 'xor_dense_apply': xor_dense_apply.applies,
                 'ell_apply': ell_apply.launches,
                 'general_sweep': general_sweep.applies,
                 'minres_iterations': minres_solver.iterations}
     stats = dict(computations.last_solve_stats)
     ran = launches[{'xor': 'xor_apply', 'sector': 'sector_apply',
+                    'sector_ring': 'sector_ring',
                     'xor_dense': 'xor_dense_apply', 'ell': 'ell_apply',
                     'sweep': 'general_sweep'}[engine]]
     if not ran >= stats['matvecs'] > 0:
@@ -1621,15 +1641,15 @@ def xor_dense_la_sweep():
         torch.cuda.empty_cache()
 
 
-def child_distributed(rank, world, port):
-    """One rank of the distributed phase: NCCL, one GPU per rank, float32,
-    evolve and eigsolve of localized(24) through the sharded route."""
-    require_card_and_port()
+def distributed_full(rank, world):
+    """The Full(24) part of a distributed rank: the gathered evolve at L=14
+    against scipy, evolve and eigsolve of localized(24) through the XOR
+    route (pairwise exchange and the sharded kernel), their launches and
+    exchanges, and with two ranks or more the gathered ``H.dot`` against
+    the one-device kernel. Returns the record's fields."""
     import numpy as np
     import scipy.sparse.linalg
-    import torch
     import torch.distributed as dist
-    from dynamite_tpu_torch import config
     from dynamite_tpu_torch.computations import eigsolve, evolve
     from dynamite_tpu_torch.models import localized
     from dynamite_tpu_torch.ops import apply
@@ -1638,15 +1658,6 @@ def child_distributed(rank, world, port):
     from dynamite_tpu_torch.parallel import multihost
     from dynamite_tpu_torch.states import State
     from dynamite_tpu_torch.subspaces import Full
-
-    config.precision = 'single'
-    multihost.initialize(rank=rank, world_size=world,
-                         init_method=f'tcp://localhost:{port}')
-    # NCCL itself, once: the ranks' ones summed
-    one = torch.ones(1, device=config.device)
-    dist.all_reduce(one)
-    if float(one) != world:
-        raise RuntimeError(f'NCCL all_reduce gave {float(one)}, not {world}')
 
     # small: the gathered result against scipy on the host (and the first
     # solve of this process, which warms up the libraries)
@@ -1697,8 +1708,7 @@ def child_distributed(rank, world, port):
     every = multihost.allgather_host_values(counts)
     if not (every == every[0]).all():
         raise RuntimeError(f'ranks disagree on their solves: {every}')
-    out = {'phase': 'distributed', 'backend': dist.get_backend(),
-           'world_size': world, 'L14_rel_err_vs_expm_multiply': err_14,
+    out = {'L14_rel_err_vs_expm_multiply': err_14,
            'L': L, 'precision': 'single',
            'evolve_s': evolve_s, 'evolve_norm_s': ev_stats['norm_s'],
            'evolve_solve_s': ev_stats['solve_s'], 'norm': nrm,
@@ -1724,6 +1734,197 @@ def child_distributed(rank, world, port):
             if not diff <= KERNEL_TOL['float32'] * float(y_one.abs().max()):
                 raise RuntimeError(f'gathered H.dot differs from the '
                                    f'one-device route by {diff:.3e}')
+    return out
+
+
+def distributed_general(rank, world, L=24):
+    """The general pairs on a distributed rank: eigsolve (with the ground
+    state's half-chain entropy) and evolve of localized(24) on
+    SpinConserve(24, 12), float32, through the sector engine's alpha ring
+    and, with ``use_sector = False``, through each rank's ELL tables (at
+    world 1, the one-device sector and ELL routes). Per route: the build's
+    seconds, this rank's table bytes and device peak, the solves' seconds
+    and matvecs, every rank's ELL launches, the all-gather's and the ring
+    pass's calls and bytes per apply, and the ms of one apply and of the
+    transport alone (CUDA events); then, over two ranks or more, whether
+    SpinConserve(26, 13) fits ``config.ell_budget`` and what its ELL route
+    costs. Checks lambda within EVAL0_AUTO_TOL of the JAX package's
+    float64 value, the entropy within ENTROPY_TOL of its float64 value,
+    the norm of psi(t) within 1e-3 of 1, the pad rows 0, and on every rank
+    the same route and the same counts. Returns rank 0's view, the
+    per-rank values gathered."""
+    import numpy as np
+    import torch
+    from dynamite_tpu_torch import config
+    from dynamite_tpu_torch.computations import (eigsolve,
+                                                 entanglement_entropy,
+                                                 evolve)
+    from dynamite_tpu_torch.models import localized
+    from dynamite_tpu_torch.ops.apply import all_gather_rows, ring_pass
+    from dynamite_tpu_torch.ops.ell import table_bytes
+    from dynamite_tpu_torch.parallel import mesh, multihost
+    from dynamite_tpu_torch.states import State
+    from dynamite_tpu_torch.subspaces import SpinConserve
+
+    def counters():
+        return np.array([all_gather_rows.gathers, all_gather_rows.bytes,
+                         ring_pass.passes, ring_pass.bytes])
+
+    def table_mb(kernel):
+        dt, dev = torch.float32, config.device
+        if kernel.sharded is not None:
+            return kernel.sharded.table_bytes(multihost.rank(), dt,
+                                              dev) / 1e6
+        if kernel.sector_plan is not None:
+            return kernel.sector_plan.table_bytes / 1e6
+        return kernel.ell_tables.nbytes(dt, dev) / 1e6
+
+    out = {'L': L, 'routes': {}}
+    for route, use_sector in (('sector_ring', True), ('ell', False)):
+        config.use_sector = use_sector
+        H = localized(L)
+        sub = SpinConserve(L, L // 2)
+        H.add_subspace(sub)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        kernel = H.get_mat()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        want = route if world > 1 else {'sector_ring': 'sector',
+                                         'ell': 'ell'}[route]
+        if kernel.engine != want:
+            raise RuntimeError(f'{route} over {world} ranks: the '
+                               f'{kernel.engine} route')
+        build_peak = torch.cuda.max_memory_allocated() - mem0
+        c0 = counters()
+        (evals, evecs), eig_launches, eig_stats, eig_s = counted(
+            lambda: eigsolve(H, nev=1, getvecs=True),
+            f'{route} eigsolve over {world} ranks', engine=want)
+        c_eig = counters() - c0
+        lam = float(evals[0])
+        S = float(entanglement_entropy(evecs[0], keep=range(L // 2)))
+        psi = State(state='random', subspace=sub, seed=42)
+        c0 = counters()
+        r, ev_launches, ev_stats, ev_s = counted(
+            lambda: evolve(H, psi, t=1.0), f'{route} evolve over {world} '
+            'ranks', engine=want)
+        c_ev = counters() - c0
+        nrm = r.norm()
+        peak = torch.cuda.max_memory_allocated() - mem0
+        pads = bool((r.data[:, mesh.valid_rows(sub.get_dimension()):] == 0)
+                    .all())
+        x = r.data.clone()
+        apply_ms = cuda_ms(lambda: kernel.apply(x))
+        transport_ms = None
+        if world > 1:
+            transport_ms = cuda_ms(lambda: all_gather_rows(x)) \
+                if route == 'ell' else cuda_ms(lambda: ring_pass(x))
+        mine = np.array([eig_stats['matvecs'], ev_stats['matvecs'],
+                         eig_launches['ell_apply'], ev_launches['ell_apply'],
+                         table_mb(kernel), peak / 1e6, build_peak / 1e6,
+                         *c_eig, *c_ev, int(pads)], dtype=np.float64)
+        every = multihost.allgather_host_values(mine)
+        if not (every[:, :4] == every[0, :4]).all():
+            raise RuntimeError(f'{route}: ranks disagree on their solves: '
+                               f'{every[:, :4]}')
+        rec = {'engine': kernel.engine, 'build_s': build_s,
+               'eigsolve_s': eig_s, 'eval0': lam,
+               'eval0_err': abs(lam - EVAL0_SC24_F64),
+               'eigsolve_matvecs': eig_stats['matvecs'],
+               'entropy_half_chain': S, 'entropy_err': abs(S - ENTROPY_SC24),
+               'evolve_s': ev_s, 'evolve_matvecs': ev_stats['matvecs'],
+               'norm': nrm, 'pads_zero_all_ranks': bool(every[:, -1].all()),
+               'ell_launches_per_rank': every[:, 2:4].sum(1).tolist(),
+               'ell_launches_all_ranks': int(every[:, 2:4].sum()),
+               'table_mb_per_rank': every[:, 4].tolist(),
+               'peak_mb_per_rank': every[:, 5].tolist(),
+               'build_peak_mb_per_rank': every[:, 6].tolist(),
+               'eigsolve_gathers_bytes_passes_bytes': every[0, 7:11].tolist(),
+               'evolve_gathers_bytes_passes_bytes': every[0, 11:15].tolist(),
+               'apply_ms': apply_ms, 'transport_ms': transport_ms}
+        matvecs = eig_stats['matvecs'] + ev_stats['matvecs']
+        if world > 1:
+            rec['transport_bytes_per_apply'] = (
+                (c_eig[1] + c_ev[1]) if route == 'ell'
+                else (c_eig[3] + c_ev[3])) / matvecs
+        out['routes'][route] = rec
+        if not (rec['eval0_err'] <= EVAL0_AUTO_TOL
+                and rec['entropy_err'] <= ENTROPY_TOL
+                and abs(nrm - 1) <= 1e-3 and rec['pads_zero_all_ranks']):
+            if rank == 0:
+                emit({'phase': 'distributed_general', 'world_size': world,
+                      'record': out})
+            raise RuntimeError(f'{route} over {world} ranks: lambda {lam}, '
+                               f'entropy {S}, norm {nrm}')
+        del H, kernel, evals, evecs, psi, r, x
+        torch.cuda.empty_cache()
+    config.use_sector = True
+
+    # SpinConserve(26, 13) through the ELL route
+    H = localized(L + 2)
+    sub = SpinConserve(L + 2, L // 2 + 1)
+    H.add_subspace(sub)
+    from dynamite_tpu_torch.ops.apply import _Plan
+    plan = _Plan(H._msc_on(sub), sub, sub)
+    need = table_bytes(plan, mesh.storage_dim(plan.dim_left))
+    l26 = {'dim': plan.dim_left, 'ell_budget': config.ell_budget,
+           'padded_table_bytes': need, 'fits': need <= config.ell_budget}
+    if world > 1 and l26['fits']:
+        config.use_sector = False
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        kernel = H.get_mat()
+        torch.cuda.synchronize()
+        l26['build_s'] = time.perf_counter() - t0
+        (evals, _v), launches, stats, l26['eigsolve_s'] = counted(
+            lambda: eigsolve(H, nev=1, getvecs=True),
+            'SpinConserve(26, 13) over ranks', engine='ell')
+        l26.update(engine=kernel.engine, eval0=float(evals[0]),
+                   eigsolve_matvecs=stats['matvecs'])
+        mine = np.array([table_mb(kernel),
+                         (torch.cuda.max_memory_allocated() - mem0) / 1e6,
+                         launches['ell_apply']])
+        every = multihost.allgather_host_values(mine)
+        l26.update(table_mb_per_rank=every[:, 0].tolist(),
+                   peak_mb_per_rank=every[:, 1].tolist(),
+                   ell_launches_all_ranks=int(every[:, 2].sum()))
+        config.use_sector = True
+        del kernel, evals, _v
+    out['spinconserve_26'] = l26
+    del H
+    torch.cuda.empty_cache()
+    return out
+
+
+def child_distributed(rank, world, port, full=1):
+    """One rank of the distributed phase: NCCL, one GPU per rank, float32.
+    With ``full``, evolve and eigsolve of localized(24) on Full(24) through
+    the XOR route (:func:`distributed_full`); then the general pairs
+    (:func:`distributed_general`)."""
+    require_card_and_port()
+    import torch
+    import torch.distributed as dist
+    from dynamite_tpu_torch import config
+    from dynamite_tpu_torch.parallel import multihost
+
+    config.precision = 'single'
+    multihost.initialize(rank=rank, world_size=world,
+                         init_method=f'tcp://localhost:{port}')
+    # NCCL itself, once: the ranks' ones summed
+    one = torch.ones(1, device=config.device)
+    dist.all_reduce(one)
+    if float(one) != world:
+        raise RuntimeError(f'NCCL all_reduce gave {float(one)}, not {world}')
+
+    out = {'phase': 'distributed', 'backend': dist.get_backend(),
+           'world_size': world}
+    if full:
+        out.update(distributed_full(rank, world))
+    out['general'] = distributed_general(rank, world)
     if rank == 0:
         emit(out)
     multihost.barrier()
@@ -1738,10 +1939,21 @@ def _free_port():
 
 def phase_distributed():
     """One child process per GPU (the largest power of two of them), on
-    NCCL; returns rank 0's record."""
+    NCCL (:func:`child_distributed`), and with three GPUs or more a second
+    spawn at world 3 (the padded layout; general pairs only); returns rank
+    0's records."""
     import torch
     n_gpus = torch.cuda.device_count()
-    world = 1 << (n_gpus.bit_length() - 1)
+    recs = [spawn_distributed(1 << (n_gpus.bit_length() - 1), full=1)]
+    if n_gpus >= 3:
+        recs.append(spawn_distributed(3, full=0))
+    return recs
+
+
+def spawn_distributed(world, full):
+    """Run :func:`child_distributed` on ``world`` ranks; returns rank 0's
+    record."""
+    import torch
     port = _free_port()
     torch.cuda.empty_cache()
     procs = []
@@ -1750,7 +1962,7 @@ def phase_distributed():
         env.setdefault('NCCL_SOCKET_IFNAME', 'lo')
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), CHILD_DIST,
-             str(rank), str(world), str(port)],
+             str(rank), str(world), str(port), str(full)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env))
     outs = []
@@ -1967,13 +2179,19 @@ def ell_bound(t, x):
     """The least time of one ELL apply over the packed tables ``t`` on an
     H100, counted on nonzeros, so the same whatever format implements the
     matvec: the bytes it must move (an index and one coefficient, two with
-    fi, per nonzero; x read once, y written once) at HBM rate against its
-    operations (2 FMAs per nonzero and plane pair, 4 with fi) at the type's
-    CUDA-core peak. Returns (ms, 'bytes' or 'operations')."""
+    fi, per nonzero; the entries of x that its nonzeros reference read
+    once, both planes; y written once) at HBM rate against its operations
+    (2 FMAs per nonzero and plane pair, 4 with fi) at the type's CUDA-core
+    peak. Over ranks ``t`` is one rank's tables and x the gathered input,
+    of which a rank reads only its own columns. Returns (ms, 'bytes' or
+    'operations')."""
+    import torch
     dt = str(x.dtype).replace('torch.', '')
     coeffs = 1 if t.fi is None else 2
     per_nnz = t.cols.element_size() + coeffs * x.element_size()
-    nbytes = t.nnz * per_nnz + x.numel() * x.element_size() \
+    kept = t.fr != 0 if t.fi is None else (t.fr != 0) | (t.fi != 0)
+    x_cols = torch.unique(t.cols[kept]).numel()
+    nbytes = t.nnz * per_nnz + 2 * x_cols * x.element_size() \
         + 2 * t.rows * x.element_size()
     flops = t.nnz * 4 * coeffs
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2117,7 +2335,8 @@ def phase_general(L=24):
        the estimate taken before the build not below them.
 
     Returns (the kernel records, the ELL launches of the main-path solves,
-    the phase record)."""
+    the engine records, and (the operator, Auto(24)) for the sharded
+    phase)."""
     import numpy as np
     import torch
     from dynamite_tpu_torch import config, subspaces
@@ -2307,23 +2526,302 @@ def phase_general(L=24):
                            f'{rec["estimate_before_build_bytes"]:.4g} bytes, '
                            f'is below the build\'s '
                            f'{rec["build_device_bytes"]}')
-    del H, H_sc, k_sc, v, evecs, psi, psi_sc, r, r_sc
+    del H_sc, k_sc, v, evecs, psi, psi_sc, r, r_sc
     torch.cuda.empty_cache()
     launches = eig_launches['ell_apply'] + ev_launches['ell_apply']
-    return cases, launches, engines
+    return cases, launches, engines, (H, auto)
+
+
+def sharded_ell_records(H, auto, one_tables, worlds=(2, 3, 4, 8)):
+    """localized(24) on Auto(24) through the sharded ELL route on P virtual
+    ranks of one card, float32: each rank's tables built on the card (its
+    rows, nonzeros, bytes, build seconds), its ``ell_apply`` launched on
+    them and timed (CUDA events, 3 warm-up, 20 reps), its output against
+    its plain version (``sell_apply_reference``) and, put together, bitwise
+    against the one-device kernel on ``one_tables``; the ranks' nonzeros
+    must add up to the one-device count and their bytes to within 1% of
+    its bytes. Returns the records, one per P."""
+    import torch
+    from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
+    from dynamite_tpu_torch.ops.ell import ell_apply, sell_apply_reference
+    dim = auto.get_dimension()
+    x1 = numpy_planes(dim, torch.float32, seed=31)
+    saved = ell_apply.launches
+    y1 = ell_apply(x1, one_tables)
+    recs = []
+    for P in worlds:
+        t0 = time.perf_counter()
+        k = OperatorKernel(H._msc_on(auto), auto, auto,
+                           transport=VirtualTransport(P))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if k.engine != 'ell':
+            raise RuntimeError(f'Auto(24) over {P} virtual ranks: the '
+                               f'{k.engine} route')
+        n = k.sharded.local_right
+        x = torch.zeros((2, n * P), dtype=torch.float32, device='cuda')
+        x[:, :dim] = x1
+        tabs = [k.sharded.tables[r].on(torch.float32, x.device)
+                for r in range(P)]
+        ys = [ell_apply(x, t) for t in tabs]
+        y = torch.cat(ys, dim=1)
+        bitwise = bool(torch.equal(y[:, :dim], y1))
+        pads = bool((y[:, dim:] == 0).all())
+        ranks = []
+        for r, (t, yr) in enumerate(zip(tabs, ys)):
+            plain = sell_apply_reference(x, t)
+            err = float((yr - plain).abs().max())
+            rel = err / max(float(plain.abs().max()), 1e-30)
+            b_ms, b_by = ell_bound(t, x)
+            ranks.append({
+                'rank': r, 'rows': t.rows, 'nnz': t.nnz, 'stored': t.stored,
+                'table_mb': t.nbytes / 1e6,
+                'build_ms': k.sharded.tables[r].build_s[
+                    (torch.float32, x.device)] * 1e3,
+                'ms': cuda_ms(lambda: ell_apply(x, t)),
+                'plain_ms': cuda_ms(lambda: sell_apply_reference(x, t), 3,
+                                    1),
+                'max_abs_err': err, 'rel_err': rel,
+                'bound_ms': b_ms, 'bound_by': b_by})
+            del plain
+        ell_apply.launches = saved  # the checks' launches
+        nnz = sum(r['nnz'] for r in ranks)
+        mb = sum(r['table_mb'] for r in ranks)
+        rec = {'case': 'localized_auto24_ell_sharded', 'dtype': 'float32',
+               'P': P, 'dim': dim, 'storage_dim': n * P,
+               'build_s': build_s, 'ranks': ranks,
+               'nnz_sum': nnz, 'one_device_nnz': one_tables.nnz,
+               'table_mb_sum': mb,
+               'one_device_table_mb': one_tables.nbytes / 1e6,
+               'table_mb_sum_rel_diff': abs(mb * 1e6 - one_tables.nbytes)
+               / one_tables.nbytes,
+               'bitwise_equal_one_device': bitwise, 'pads_zero': pads,
+               'max_abs_err': max(r['max_abs_err'] for r in ranks),
+               'ms_sum': sum(r['ms'] for r in ranks),
+               'ms_max_rank': max(r['ms'] for r in ranks),
+               'plain_ms_sum': sum(r['plain_ms'] for r in ranks),
+               'bound_ms_sum': sum(r['bound_ms'] for r in ranks),
+               'bound_by': ranks[0]['bound_by'],
+               'gathered_x_mb': x.numel() * x.element_size() / 1e6}
+        recs.append(rec)
+        ok = (bitwise and pads and nnz == one_tables.nnz
+              and rec['table_mb_sum_rel_diff'] <= 0.01
+              and all(r['rel_err'] <= KERNEL_TOL['float32'] for r in ranks))
+        if not ok:
+            emit({'phase': 'general_sharded', 'cases': recs})
+            raise RuntimeError(f'Auto(24) over {P} virtual ranks: the '
+                               'sharded ELL route disagrees')
+        del k, tabs, ys, y, x
+        torch.cuda.empty_cache()
+    return recs
+
+
+def sharded_evolve(H, auto, P=4):
+    """The main path of the sharded ELL route on one card: evolve(t=1) of a
+    numpy-seeded state on Auto(24) by the Krylov stepping of
+    ``solvers.expmv`` through a kernel over P virtual ranks (its padded
+    (2, storage_dim) vector, every apply one ``ell_apply`` launch per
+    rank), the launches counted just around it; against the same evolve
+    on one device (within AUTO_EVOLVE_TOL). Returns the record and the
+    launches."""
+    import torch
+    from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
+    from dynamite_tpu_torch.ops.ell import ell_apply
+    from dynamite_tpu_torch.solvers.expmv import expmv
+    dim = auto.get_dimension()
+    k = OperatorKernel(H._msc_on(auto), auto, auto,
+                       transport=VirtualTransport(P))
+    anorm = H.infinity_norm()
+    x1 = numpy_planes(dim, torch.float32, seed=23)
+    x = torch.zeros((2, k.sharded.local_right * P), dtype=torch.float32,
+                    device='cuda')
+    x[:, :dim] = x1
+    one = H.get_mat()
+    want = expmv(one.krylov_ops(30), x1, -1j, anorm, ncv=30, tol=1e-7)
+    stats = {}
+    torch.cuda.synchronize()
+    ell_apply.launches = 0
+    t0 = time.perf_counter()
+    got = expmv(k.krylov_ops(30), x, -1j, anorm, ncv=30, tol=1e-7,
+                stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ell_apply.launches
+    err = float((got[:, :dim] - want).abs().max())
+    rec = {'case': 'evolve_auto24_virtual_ranks', 'P': P,
+           'evolve_s': seconds, 'matvecs': stats['matvecs'],
+           'launches': launches, 'max_abs_err_vs_one_device': err,
+           'pads_zero': bool((got[:, dim:] == 0).all())}
+    if not (launches >= P * stats['matvecs'] > 0 and rec['pads_zero']
+            and err <= AUTO_EVOLVE_TOL):
+        emit({'phase': 'general_sharded', 'evolve': rec})
+        raise RuntimeError('evolve on Auto(24) over virtual ranks: '
+                           f'{launches} launches for {stats["matvecs"]} '
+                           f'matvecs, {err:.3e} from one device')
+    return rec, launches
+
+
+def sector_ring_records(L=24, worlds=(2, 3, 4)):
+    """heisenberg(24) and localized(24) on SpinConserve(24, 12) through the
+    sector engine's alpha ring on P virtual ranks, float32, against the
+    one-device sector engine on the same vector (within 1e-5 relative),
+    with each rank's table bytes (at most the estimate before the build,
+    summed over the ranks) and the ms of an apply of all P ranks (CUDA
+    events, 1 warm-up, 3 reps); ``build_s`` is the kernel's build
+    over the P virtual ranks, its sector plan included. Returns the
+    records."""
+    import torch
+    from dynamite_tpu_torch.models import heisenberg, localized
+    from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
+    from dynamite_tpu_torch.subspaces import SpinConserve
+    recs = []
+    for name, model in (('heisenberg', heisenberg), ('localized',
+                                                     localized)):
+        H = model(L)
+        sub = SpinConserve(L, L // 2)
+        H.add_subspace(sub)
+        one = H.get_mat()
+        if one.engine != 'sector':
+            raise RuntimeError(f'{name}({L}): the {one.engine} route')
+        msc = H._msc_on(sub)
+        dim = sub.get_dimension()
+        x1 = numpy_planes(dim, torch.float32, seed=32)
+        y1 = one.apply(x1)
+        for P in worlds:
+            est = H._engine_table_bytes(P)
+            t0 = time.perf_counter()
+            k = OperatorKernel(msc, sub, sub, transport=VirtualTransport(P))
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            if k.engine != 'sector_ring':
+                raise RuntimeError(f'{name}({L}) over {P} virtual ranks: '
+                                   f'the {k.engine} route')
+            route = k.sharded
+            n = route.local_left
+            blocks = [torch.zeros((2, n), dtype=torch.float32,
+                                  device='cuda') for _ in range(P)]
+            for r in range(P):
+                lo, hi = r * n, min((r + 1) * n, dim)
+                if hi > lo:
+                    blocks[r][:, :hi - lo] = x1[:, lo:hi]
+            y = torch.cat(route.apply(blocks), dim=1)
+            rel = float((y[:, :dim] - y1).abs().max() / y1.abs().max())
+            rec = {'case': f'{name}_sc{L}_sector_ring', 'dtype': 'float32',
+                   'P': P, 'dim': dim, 'build_s': build_s,
+                   'rel_err_vs_one_device': rel,
+                   'pads_zero': bool((y[:, dim:] == 0).all()),
+                   'rank_table_mb': [route.table_bytes(
+                       r, torch.float32, y.device) / 1e6 for r in range(P)],
+                   'table_mb_sum': route.total_bytes(torch.float32,
+                                                     y.device) / 1e6,
+                   'estimate_before_build_mb': est / 1e6,
+                   'one_device_table_mb': one.sector_plan.table_bytes / 1e6,
+                   'ms_all_ranks': cuda_ms(lambda: route.apply(blocks), 3,
+                                           1),
+                   'one_device_ms': cuda_ms(lambda: one.apply(x1), 3, 1)}
+            recs.append(rec)
+            if not (rel <= KERNEL_TOL['float32'] and rec['pads_zero']
+                    and est >= route.total_bytes(torch.float32, y.device)):
+                emit({'phase': 'general_sharded', 'cases': recs})
+                raise RuntimeError(f'{name}({L}) over {P} virtual ranks: '
+                                   f'the alpha ring is {rel:.3e} from one '
+                                   'device, or its tables pass the '
+                                   'estimate before the build')
+            del k, route, blocks, y
+            torch.cuda.empty_cache()
+        del H, one, x1, y1
+        torch.cuda.empty_cache()
+    return recs
+
+
+def sweep_records(L=20, P=3):
+    """Both sweeps over P virtual ranks (the all-gather one and the ring),
+    localized(20) on SpinConserve(20, 10) with the sector and ELL engines
+    off, float32, against the one-device sweep, with ms per apply of all
+    ranks (CUDA events, 1 warm-up, 3 reps)."""
+    import torch
+    from dynamite_tpu_torch import config
+    from dynamite_tpu_torch.models import localized
+    from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
+    from dynamite_tpu_torch.subspaces import SpinConserve
+    H = localized(L)
+    sub = SpinConserve(L, L // 2)
+    H.add_subspace(sub)
+    msc = H._msc_on(sub)
+    dim = sub.get_dimension()
+    x1 = numpy_planes(dim, torch.float32, seed=33)
+    recs = []
+    saved = (config.use_sector, config.use_ell, config.sharded_ring_general)
+    try:
+        config.use_sector = config.use_ell = False
+        one = OperatorKernel(msc, sub, sub)
+        y1 = one.apply(x1)
+        one_ms = cuda_ms(lambda: one.apply(x1), 3, 1)
+        for ring in (False, True):
+            config.sharded_ring_general = ring
+            k = OperatorKernel(msc, sub, sub, transport=VirtualTransport(P))
+            x = torch.zeros((2, k.sharded.local_right * P),
+                            dtype=torch.float32, device='cuda')
+            x[:, :dim] = x1
+            y = k.apply(x)
+            rel = float((y[:, :dim] - y1).abs().max() / y1.abs().max())
+            recs.append({'case': f'localized_sc{L}_{k.engine}', 'P': P,
+                         'dim': dim, 'rel_err_vs_one_device': rel,
+                         'pads_zero': bool((y[:, dim:] == 0).all()),
+                         'ms_all_ranks': cuda_ms(lambda: k.apply(x), 3, 1),
+                         'one_device_ms': one_ms})
+            if not (rel <= KERNEL_TOL['float32'] and recs[-1]['pads_zero']):
+                emit({'phase': 'general_sharded', 'sweeps': recs})
+                raise RuntimeError(f'the {k.engine} route over {P} virtual '
+                                   f'ranks is {rel:.3e} from one device')
+    finally:
+        config.use_sector, config.use_ell, config.sharded_ring_general = \
+            saved
+    return recs
+
+
+def phase_general_sharded(H, auto, one_tables):
+    """The general routes over ranks on one card, with P virtual ranks in
+    one process (``ops/apply.py``'s VirtualTransport: the same table
+    builders and ring bodies as a process group runs), float32:
+
+    1. localized(24) on Auto(24) through the sharded ELL route at P = 2,
+       3, 4, 8 (3 and 8 pad: 2,704,156 rows divide neither), per rank and
+       summed (:func:`sharded_ell_records`);
+    2. its main path: evolve(t=1) through the route at P = 4, the ELL
+       launches counted around it (:func:`sharded_evolve`);
+    3. heisenberg(24) and localized(24) on SpinConserve(24, 12) through
+       the alpha ring at P = 2, 3, 4 (:func:`sector_ring_records`);
+    4. both sweeps at L = 20 (:func:`sweep_records`).
+
+    Returns (the P = 4 ELL record, the main path's launches)."""
+    ell_recs = sharded_ell_records(H, auto, one_tables)
+    evolve_rec, launches = sharded_evolve(H, auto)
+    ring_recs = sector_ring_records()
+    sweeps = sweep_records()
+    emit({'phase': 'general_sharded', 'cases': ell_recs,
+          'evolve': evolve_rec, 'sector_ring': ring_recs,
+          'sweeps': sweeps})
+    return next(r for r in ell_recs if r['P'] == 4), launches
 
 
 def general_only():
-    """``python3 chip_smoke.py --general``: the environment and the general
-    phase alone."""
+    """``python3 chip_smoke.py --general``: the environment, the general
+    phase and the general routes over virtual ranks alone."""
     require_card_and_port()
+    import torch
     from dynamite_tpu_torch import config
     config.precision = 'single'
     config._initialize()
     phase_env()
     t0 = time.perf_counter()
-    phase_general()
-    emit({'phase_seconds': {'phase_general': time.perf_counter() - t0}})
+    H, auto = phase_general()[3]
+    t1 = time.perf_counter()
+    phase_general_sharded(H, auto, H.get_mat().ell_tables.on(
+        torch.float32, torch.device('cuda', 0)))
+    emit({'phase_seconds': {'phase_general': t1 - t0,
+                            'phase_general_sharded':
+                            time.perf_counter() - t1}})
 
 
 def main():
@@ -2357,11 +2855,27 @@ def main():
     run(phase_sector_solves)
     syk_recs, _syk_solve = run(phase_syk)
     engines += syk_recs
-    ell_cases, ell_launches, general_engines = run(phase_general)
+    ell_cases, ell_launches, general_engines, (H_auto, auto) = run(
+        phase_general)
     engines += general_engines
-    dist_rec = run(phase_distributed)
+    one_tables = H_auto.get_mat().ell_tables.on(torch.float32,
+                                                torch.device('cuda', 0))
+    shard_ell, shard_launches = run(phase_general_sharded, H_auto, auto,
+                                    one_tables)
+    del H_auto, auto, one_tables
+    torch.cuda.empty_cache()
+    dist_recs = run(phase_distributed)
+    dist_rec = dist_recs[0]
     emit({'phase_seconds': seconds,
           'total_s': time.perf_counter() - t_start})
+    # the sharded ELL route's launches on the main path: the evolve over
+    # virtual ranks, and the distributed solves over two ranks or more
+    for rec in dist_recs:
+        if rec['world_size'] > 1:
+            gen = rec['general']
+            shard_launches += gen['routes']['ell']['ell_launches_all_ranks']
+            shard_launches += gen['spinconserve_26'].get(
+                'ell_launches_all_ranks', 0)
     diag_builds = launches['xor_diagonal'] + dist_rec['diag_builds_all_ranks']
     if not diag_builds > 0:
         raise RuntimeError('the main path built no diagonal stream')
@@ -2377,6 +2891,8 @@ def main():
     ell_case = ell_cases[0]  # localized(24) on Auto(24), float32
     if not ell_launches > 0:
         raise RuntimeError('the main path launched no ELL kernel')
+    if not shard_launches > 0:
+        raise RuntimeError('the main path launched no sharded ELL kernel')
     # the sector and XOR-dense engines: torch ops and cuBLAS products, no
     # kernel of the port's own, so their records stand apart from the
     # kernels' line
@@ -2439,6 +2955,22 @@ def main():
         'plain_ms': ell_case['plain_ms'],
         'bound_ms': ell_case['bound_ms'],
         'bound_by': ell_case['bound_by'],
+        'library_ms': ell_case['library_ms'],
+    }, {
+        # the same kernel on each rank's own tables: localized(24) on
+        # Auto(24), float32, over P = 4 virtual ranks, the sum of the four
+        # launches (each with the gathered x); the yardstick is cuSPARSE's
+        # SpMV of the whole matrix
+        'name': 'ell_apply_sharded',
+        'route': 'cuda',
+        'source': 'dynamite_tpu_torch/csrc/ell_apply.cu',
+        'replaces': 'dynamite_tpu/ops/ell.py:252 via ops/apply.py:984',
+        'launches': shard_launches,
+        'max_abs_err': shard_ell['max_abs_err'],
+        'ms': shard_ell['ms_sum'],
+        'plain_ms': shard_ell['plain_ms_sum'],
+        'bound_ms': shard_ell['bound_ms_sum'],
+        'bound_by': shard_ell['bound_by'],
         'library_ms': ell_case['library_ms'],
     }]})
     emit({'ok': True, 'device': {'platform': 'gpu',

@@ -44,6 +44,14 @@ class _Config:
         # recomputes subspace rankings every apply
         self.use_ell = True
         self.ell_budget = 4 << 30  # bytes
+        # the sector engine for SpinConserve pairs (ops/sector_apply.py;
+        # over ranks its alpha ring, ops/sector_shard.py); False sends
+        # those pairs to the ELL engine
+        self.use_sector = True
+        # over ranks, the on-the-fly sweep passes x around the ring (True)
+        # or all-gathers it (False); None: the ring once a gathered input
+        # would take more than ops/apply.py's RING_GENERAL_BYTES
+        self.sharded_ring_general = None
 
     # -- one-shot initialization ------------------------------------------
 

@@ -537,9 +537,12 @@ class Operator:
         (:func:`.ops.ell.packed_bound`: an index and one coefficient, two
         with imaginary coefficients, per group and row over whole 32-row
         slices, and the slice pointers), and after that the bytes they
-        hold (:meth:`.ops.ell.EllTables.nbytes`)."""
+        hold (:meth:`.ops.ell.EllTables.nbytes`).
+
+        Over ``mpi_size`` > 1 ranks, a pair off the XOR route counts the
+        general route's tables (:meth:`_sharded_table_bytes`)."""
         from .ops import ell as ell_mod
-        from .ops.apply import _kernel_holds, _Plan
+        from .ops.apply import _kernel_holds, _Plan, sharded_route
         from .ops.sector_apply import (TABLE_BUDGET, sector_supported,
                                        table_bytes_estimate)
         from .ops.xor_apply import XorTables
@@ -551,6 +554,10 @@ class Operator:
         if not plan.groups:
             return 0
         cb = config.real_dtype.itemsize
+        if mpi_size > 1:
+            route = sharded_route(plan, left, right, mpi_size)
+            if route != 'xor':
+                return self._sharded_table_bytes(plan, route, mpi_size)
         if plan.xor_mode:
             tables = XorTables(plan, left)
             if not plan.use_scan or _kernel_holds(tables):
@@ -561,7 +568,7 @@ class Operator:
             split = choose_split(plan, left, right)
             if split is not None:
                 return split[3]
-        elif sector_supported(plan, left, right):
+        elif config.use_sector and sector_supported(plan, left, right):
             est = table_bytes_estimate(plan, left, right)
             if est <= TABLE_BUDGET:
                 return est * mpi_size  # replicated on every rank
@@ -572,6 +579,35 @@ class Operator:
                       and kernel.ell_tables is not None
                       else ell_mod.EllTables(plan))
             return tables.nbytes(config.real_dtype, config.device)
+        return 0
+
+    def _sharded_table_bytes(self, plan, route, mpi_size):
+        """The table bytes of the general ``route`` over ``mpi_size``
+        ranks (:func:`.ops.apply.sharded_route`), summed over them, with
+        no collective. Once the default pair's kernel is built over a
+        transport of that many ranks, the bytes its ranks hold (the alpha
+        ring's counted from its plan, the ELL tables' gathered by their
+        build); before that, for the alpha ring the sector engine's
+        estimate over the ranks (:func:`.ops.sector_apply.
+        table_bytes_estimate`), and for the ELL route the most each rank's
+        packed tables can take (:func:`.ops.ell.packed_bound`); nothing
+        for the sweeps."""
+        from .ops import ell as ell_mod
+        from .ops.sector_apply import table_bytes_estimate
+        from .parallel import mesh
+        left, right = self.left_subspace, self.right_subspace
+        kernel = self._kernels.get((left, right))
+        if kernel is not None and kernel.sharded is not None \
+                and kernel.transport.world == mpi_size:
+            return kernel.sharded.total_bytes(config.real_dtype,
+                                              config.device)
+        if route == 'sector_ring':
+            return table_bytes_estimate(plan, left, right, mpi_size)
+        if route == 'ell':
+            n = mesh.local_dim(plan.dim_left, mpi_size)
+            return sum(ell_mod.packed_bound(plan, config.real_dtype,
+                                            (r * n, (r + 1) * n))
+                       for r in range(mpi_size))
         return 0
 
     def spy(self, subspaces=None, max_size=1024):

@@ -30,6 +30,14 @@ On CUDA tensors :func:`ell_apply` launches the kernel or raises; on CPU
 tensors it runs the plain version over the same packed tables,
 :func:`sell_apply_reference`. :func:`ell_apply_reference` is the plain
 version over the (G, rows) tables, the tests' oracle of the packing.
+
+Over ranks (``ops/apply.py``'s sharded ELL route, the JAX package's
+``_build_sharded_ell``) each rank builds the tables of its own rows only:
+every builder here takes a global row range ``rows=(start, stop)``, whose
+rows at or past the left dimension are the layout's pad rows
+(``parallel.mesh``) and get no entry, and blocks are counted from
+``start``, so no slice spans two ranks. Columns stay global: a rank's
+tables apply to the gathered (2, storage_dim) input, their ``dim_right``.
 """
 
 import ctypes
@@ -80,15 +88,18 @@ def chunk_groups(groups):
             np.asarray(gids, dtype=np.int32), len(groups))
 
 
-def table_bytes(plan):
+def table_bytes(plan, storage_rows=None):
     """The tables' bytes as the JAX package estimates them for its budget
     gate: an index (4 bytes up to L = 31, else 8) and two coefficients in
     ``config.real_dtype`` per (row, group), whether or not ``fi`` is
-    built."""
+    built, over ``storage_rows`` rows (default the left dimension; over
+    ranks, the padded storage length: the whole count, summed over
+    ranks)."""
     from .. import config
+    rows = plan.dim_left if storage_rows is None else storage_rows
     idx_bytes = 4 if plan.L <= 31 else 8
     cb = config.real_dtype.itemsize
-    return len(plan.groups) * plan.dim_left * (idx_bytes + cb + cb)
+    return len(plan.groups) * rows * (idx_bytes + cb + cb)
 
 
 def index_dtype(plan):
@@ -97,16 +108,24 @@ def index_dtype(plan):
     return torch.int64 if big else torch.int32
 
 
-def packed_bound(plan, dtype):
-    """The most bytes the packed tables of a plan can take in ``dtype``: an
-    index and one coefficient (two when ``fi`` is built) for every group of
-    every row, and the slice pointers. That is the (G, rows) count plus 8
-    bytes a slice of 32 rows; the tables take less wherever a row drops an
+def _row_range(plan, rows):
+    """(start, stop) of a row range, every row of the plan by default."""
+    return (0, plan.dim_left) if rows is None else (int(rows[0]),
+                                                     int(rows[1]))
+
+
+def packed_bound(plan, dtype, rows=None):
+    """The most bytes the packed tables of a plan's ``rows`` (see
+    :func:`_table_blocks`) can take in ``dtype``: an index and one
+    coefficient (two when ``fi`` is built) for every group of every row,
+    and the slice pointers. That is the (G, rows) count plus 8 bytes a
+    slice of 32 rows; the tables take less wherever a row drops an
     entry."""
+    start, stop = _row_range(plan, rows)
     entry = (index_dtype(plan).itemsize
              + dtype.itemsize * (2 if has_imag(plan) else 1))
-    return (len(plan.groups) * plan.dim_left * entry
-            + 8 * (-(-plan.dim_left // SLICE) + 1))
+    return (len(plan.groups) * (stop - start) * entry
+            + 8 * (-(-(stop - start) // SLICE) + 1))
 
 
 def has_imag(plan):
@@ -115,23 +134,24 @@ def has_imag(plan):
     return any(np.any(c.imag != 0) for _m, _p, _s, c in plan.groups)
 
 
-def _table_blocks(plan, dtype, device, with_conserves):
+def _table_blocks(plan, dtype, device, with_conserves, rows=None):
     """The (G, rows) tables of a plan in blocks of 2**BUILD_CHUNK_BITS rows
     on ``device``: yields (start, cols, fr, fi_or_None, leaves) per block,
-    each table (G, block rows), ``leaves`` a bool tensor when
-    ``with_conserves`` (some row of the block leaves the right subspace
-    with a coefficient that does not cancel), else None. See
+    ``start`` counted from the range's first row, each table (G, block
+    rows), ``leaves`` a bool tensor when ``with_conserves`` (some row of
+    the block leaves the right subspace with a coefficient that does not
+    cancel), else None. ``rows`` is a global row range (start, stop),
+    every row by default; its rows at or past ``plan.dim_left`` are pad
+    rows: column 0, coefficient 0, and they leave nothing. See
     :func:`build_tables`."""
     masks_c, signs_c, cr_c, ci_c, gids, G = chunk_groups(plan.groups)
     fi_needed = bool(np.any(ci_c != 0))
-    rows_all = plan.dim_left
+    first, last = _row_range(plan, rows)
+    rows_all = last - first
     # the cancellation threshold of each group, from its chunks' scales
     gscale = np.zeros(G)
     np.add.at(gscale, gids, (np.abs(cr_c) + np.abs(ci_c)).sum(axis=1))
     tol = 1e-12 * gscale
-    signs_d = torch.as_tensor(signs_c, device=device)
-    cr_d = torch.as_tensor(cr_c, device=device)
-    ci_d = torch.as_tensor(ci_c, device=device)
 
     C = 1 << BUILD_CHUNK_BITS
     for start in range(0, rows_all, C):
@@ -142,26 +162,43 @@ def _table_blocks(plan, dtype, device, with_conserves):
         fi = torch.empty_like(fr) if fi_needed else None
         leaves = (torch.zeros((), dtype=torch.bool, device=device)
                   if with_conserves else None)
-        rows = torch.arange(start, stop, dtype=torch.int64, device=device)
+        rows = torch.arange(first + start, first + stop, dtype=torch.int64,
+                            device=device)
+        real = rows < plan.dim_left if first + stop > plan.dim_left \
+            else None
+        if real is not None:
+            rows = rows.clamp_(max=plan.dim_left - 1)
         kets = plan.row_states(rows)
         c = 0
         while c < len(gids):
             g = int(gids[c])
             bra = kets ^ int(masks_c[c])
             col, valid = plan.right_map.s2i(bra)
+            if real is not None:
+                valid = valid & real
             f_re = torch.zeros(stop - start, dtype=torch.float64,
                                device=device)
             f_im = torch.zeros_like(f_re) if fi_needed else None
             while c < len(gids) and gids[c] == g:
-                w = (1 - 2 * parity(bra[:, None] & signs_d[c][None, :])
-                     ).to(torch.float64)
-                f_re += w @ cr_d[c]
-                if fi_needed:
-                    f_im += w @ ci_d[c]
+                # term by term in a fixed order: each product is exact (a
+                # sign), so a row's sum does not depend on how many rows
+                # the block holds (a matrix product may sum the terms in
+                # another order for another shape)
+                for t in range(TERM_CHUNK):
+                    cr, ci = float(cr_c[c, t]), float(ci_c[c, t])
+                    if not (cr or ci):
+                        continue
+                    w = (1 - 2 * parity(bra & int(signs_c[c, t]))
+                         ).to(torch.float64)
+                    if cr:
+                        f_re.add_(w, alpha=cr)
+                    if ci:
+                        f_im.add_(w, alpha=ci)
                 c += 1
             if with_conserves:
                 mag = f_re.abs() if f_im is None else f_re.abs() + f_im.abs()
-                leaves |= (~valid & (mag > tol[g])).any()
+                out = ~valid if real is None else ~valid & real
+                leaves |= (out & (mag > tol[g])).any()
             cols[g] = torch.where(valid, col, 0)
             ok = valid.to(torch.float64)
             fr[g] = f_re * ok
@@ -171,12 +208,13 @@ def _table_blocks(plan, dtype, device, with_conserves):
         del cols, fr, fi  # before the next block's tables are made
 
 
-def build_tables(plan, dtype, device, with_conserves=False):
+def build_tables(plan, dtype, device, with_conserves=False, rows=None):
     """The (cols, fr, fi) tables of a plan on ``device``: cols a (G, rows)
     int32 tensor (int64 when a dimension reaches 2**31), fr and fi (G,
     rows) in ``dtype``, fi None when every coefficient is real. A group's
-    coefficient is summed over its TERM_CHUNK-term chunks in float64, as
-    the JAX package sums its chunks, and cast to ``dtype`` once.
+    coefficient is summed over its terms in float64, term by term in a
+    fixed order (so every row gets the same bits whatever block or rank
+    builds it), and cast to ``dtype`` once.
 
     ``with_conserves`` also returns the conservation flag, computed in the
     same pass: every row's every group either lands inside the right
@@ -185,19 +223,23 @@ def build_tables(plan, dtype, device, with_conserves=False):
     operators on a square pair this equals the reference's column-wise
     CheckConserves (bpetsc_template_2.c:990-1056).
 
+    ``rows`` = (start, stop) builds those global rows alone (one rank's,
+    pad rows included; see :func:`_table_blocks`).
+
     The engine itself never holds these tables whole
     (:func:`build_packed`); they are the JAX package's layout, and the
     input of :func:`pack_tables`. Returns (cols, fr, fi_or_None[,
     conserved])."""
     device = torch.device(device)
-    shape = (len(plan.groups), plan.dim_left)
+    start, stop = _row_range(plan, rows)
+    shape = (len(plan.groups), stop - start)
     cols = torch.empty(shape, dtype=index_dtype(plan), device=device)
     fr = torch.empty(shape, dtype=dtype, device=device)
     fi = (torch.empty(shape, dtype=dtype, device=device)
           if has_imag(plan) else None)
     leaves = torch.zeros((), dtype=torch.bool, device=device)
     for start, c, f, g, lv in _table_blocks(plan, dtype, device,
-                                            with_conserves):
+                                            with_conserves, rows):
         sl = slice(start, start + c.shape[1])
         cols[:, sl] = c
         fr[:, sl] = f
@@ -302,7 +344,8 @@ def pack_tables(cols, fr, fi, dim_right):
                       nnz, stored)
 
 
-def build_packed(plan, dtype, device, with_conserves=False):
+def build_packed(plan, dtype, device, with_conserves=False, rows=None,
+                 dim_right=None):
     """The :class:`SellTables` of a plan on ``device``, packed block by
     block as :func:`build_tables` computes its rows: each block of
     2**BUILD_CHUNK_BITS rows (a multiple of 32, so no slice spans two) goes
@@ -312,17 +355,25 @@ def build_packed(plan, dtype, device, with_conserves=False):
     temporaries, or the packed tables and one more copy of one of them; it
     never holds the (G, rows) tables whole.
 
+    ``rows`` = (start, stop) packs those global rows alone (one rank's,
+    see :func:`_table_blocks`), their slices counted from ``start``;
+    ``dim_right`` is the width of the x the tables apply to (default the
+    right dimension; over ranks, the gathered storage length).
+
     Returns (tables, the conservation flag of :func:`build_tables` or None,
     the seconds spent packing and joining)."""
     device = torch.device(device)
+    start, stop = _row_range(plan, rows)
+    if dim_right is None:
+        dim_right = plan.dim_right
     sync = ((lambda: torch.cuda.synchronize(device))
             if device.type == 'cuda' else (lambda: None))
     pieces, leaves, pack_s = [], [], 0.0
     for _start, c, f, g, lv in _table_blocks(plan, dtype, device,
-                                             with_conserves):
+                                             with_conserves, rows):
         sync()
         t0 = time.perf_counter()
-        pieces.append(pack_tables(c, f, g, plan.dim_right))
+        pieces.append(pack_tables(c, f, g, dim_right))
         del c, f, g
         sync()
         pack_s += time.perf_counter() - t0
@@ -333,10 +384,10 @@ def build_packed(plan, dtype, device, with_conserves=False):
     if len(pieces) == 1:
         return pieces[0], conserved, pack_s
     t0 = time.perf_counter()
-    start = np.cumsum([0] + [p.stored for p in pieces])
+    offsets = np.cumsum([0] + [p.stored for p in pieces])
     slice_ptr = torch.cat([p.slice_ptr[:-1] + int(o)
-                           for p, o in zip(pieces, start)]
-                          + [pieces[-1].slice_ptr[-1:] + int(start[-2])])
+                           for p, o in zip(pieces, offsets)]
+                          + [pieces[-1].slice_ptr[-1:] + int(offsets[-2])])
     nnz = sum(p.nnz for p in pieces)
     joined = {}
     for name in ('cols', 'fr', 'fi'):
@@ -347,8 +398,8 @@ def build_packed(plan, dtype, device, with_conserves=False):
     sync()
     pack_s += time.perf_counter() - t0
     return (SellTables(slice_ptr, joined['cols'], joined['fr'],
-                       joined['fi'], plan.dim_left, int(plan.dim_right), nnz,
-                       int(start[-1])), conserved, pack_s)
+                       joined['fi'], stop - start, int(dim_right), nnz,
+                       int(offsets[-1])), conserved, pack_s)
 
 
 def _key(dtype, device):
@@ -366,10 +417,14 @@ class EllTables:
     :meth:`build_conserving` builds the first set with the conservation
     flag. Each build packs its rows block by block (:func:`build_packed`);
     ``build_s`` holds each build's seconds, the packing's included,
-    ``pack_s`` the packing's alone."""
+    ``pack_s`` the packing's alone. Over ranks, one rank's: ``rows`` its
+    global row range and ``dim_right`` the gathered input's width (see
+    :func:`build_packed`), and every byte count is that rank's."""
 
-    def __init__(self, plan):
+    def __init__(self, plan, rows=None, dim_right=None):
         self.plan = plan
+        self.rows = rows
+        self.dim_right = dim_right
         self.n_groups = len(plan.groups)
         self.has_fi = has_imag(plan)
         self._tables = {}
@@ -379,8 +434,9 @@ class EllTables:
     def _build(self, dtype, device, with_conserves):
         key = _key(dtype, device)
         t0 = time.perf_counter()
-        tables, conserved, pack_s = build_packed(self.plan, dtype, key[1],
-                                                 with_conserves)
+        tables, conserved, pack_s = build_packed(
+            self.plan, dtype, key[1], with_conserves, self.rows,
+            self.dim_right)
         if key[1].type == 'cuda':
             torch.cuda.synchronize(key[1])
         self._tables[key] = tables
@@ -414,7 +470,7 @@ class EllTables:
         key = _key(dtype, device)
         if key in self._tables:
             return self._tables[key].nbytes
-        return packed_bound(self.plan, dtype)
+        return packed_bound(self.plan, dtype, self.rows)
 
 
 def ell_apply_reference(x, cols, fr, fi=None):
@@ -445,8 +501,11 @@ def sell_apply_reference(x, t):
     """The plain PyTorch version of the kernel, over the packed tables
     ``t`` (:class:`SellTables`): the same y as :func:`ell_apply_reference`.
     The full slices of one width w are gathered together, about
-    2**REF_CHUNK_BITS entries at a time, as (slices, w, 32) blocks and
-    summed over w; a last, narrower slice on its own."""
+    2**REF_CHUNK_BITS entries at a time, as (w, slices, 32) blocks, both
+    planes at once, and summed over w in entry order, as the kernel sums a
+    row, so a row's sum does not depend on its slice's width or on how
+    many slices share it (a sharded rank's tables give its rows bitwise
+    what the whole tables give); a last, narrower slice on its own."""
     lanes = _slice_lanes(t.rows, x.device)
     width = torch.diff(t.slice_ptr) // lanes
     y = x.new_zeros((2, t.rows))
@@ -463,19 +522,22 @@ def sell_apply_reference(x, t):
     for s, w, n in blocks:
         if w == 0:
             continue
-        idx = t.slice_ptr[s, None] + torch.arange(n * w, device=x.device)
-        xp = x[:, t.cols[idx].long()]                     # (2, slices, w n)
+        # entry j of lane l of slice s lies at slice_ptr[s] + n j + l
+        idx = (t.slice_ptr[s][None, :, None]
+               + n * torch.arange(w, device=x.device)[:, None, None]
+               + torch.arange(n, device=x.device))          # (w, slices, n)
+        xp = x[:, t.cols[idx].long()]                      # (2, w, slices, n)
         f = t.fr[idx]
-        yr = (f * xp[0]).view(-1, w, n).sum(1)
-        yi = (f * xp[1]).view(-1, w, n).sum(1)
-        if t.fi is not None:
-            g = t.fi[idx]
-            yr -= (g * xp[1]).view(-1, w, n).sum(1)
-            yi += (g * xp[0]).view(-1, w, n).sum(1)
+        g = None if t.fi is None else t.fi[idx]
+        acc = x.new_zeros((2, len(s), n))
+        for j in range(w):
+            acc += f[j] * xp[:, j]
+            if g is not None:
+                acc[0] -= g[j] * xp[1, j]
+                acc[1] += g[j] * xp[0, j]
         rows = (s[:, None] * SLICE + torch.arange(n, device=x.device)
                 ).flatten()
-        y[0, rows] = yr.flatten()
-        y[1, rows] = yi.flatten()
+        y[:, rows] = acc.view(2, -1)
     return y
 
 

@@ -201,7 +201,7 @@ def rdm_blocks(state, keep):
     from . import sectors
 
     keep = tuple(map(int, keep))
-    data = multihost.gather_rows(state.data, to_all=False)
+    data = multihost.gather_rows(state.data, to_all=False, dim=len(state))
     if data is None:
         return None
     sub = state.subspace

@@ -59,7 +59,7 @@ def build_infinity_norm(msc, left, right, real_dtype, device):
     def norm_fn():
         best = torch.zeros((), dtype=real_dtype, device=device)
         first = mesh.row0(dim)
-        stop = first + mesh.local_dim(dim)
+        stop = first + mesh.valid_rows(dim)  # no pad row
         C = min(1 << RED_CHUNK_BITS, dim)
         for start in range(first, stop, C):
             rows = torch.arange(start, min(start + C, stop),

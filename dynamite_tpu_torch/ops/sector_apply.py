@@ -111,44 +111,75 @@ def _split_mask(m, L, La, Lr):
     return mt, mr, ma
 
 
-def table_bytes_estimate(plan, left, right):
-    """Pre-build upper bound on device table memory (for the budget gate)."""
+def table_bytes_estimate(plan, left, right, world=None):
+    """Pre-build upper bound on device table memory. One device (``world``
+    None): the matrices and the diagonal, the budget gate of the sector
+    engine and of the alpha ring (the JAX package's count). Over ``world``
+    ranks: the alpha ring's (:mod:`.sector_shard`), summed over the ranks:
+    every rank holds its output-alpha rows of each M, padded to (w_o, world
+    w_i) with w = ceil(na / world), its diagonal in the alpha layout, its
+    slice of each row scale ca, and a copy of each N matrix, row scale W
+    and gather bidx (int64); W, bidx and ca are counted at most
+    (popcount(mr) + 1) per (mr, top bit, sign part) and output sector."""
     from .. import config
     lbase, lx = _resolve(left)
     lay = sec_mod.layout(lbase.L, lbase.k)
     secs = [s for s in range(lay.n_sectors) if not (lx and lay.t[s])]
     cb = _np_dtype(config.real_dtype).itemsize
+    P = 1 if world is None else int(world)
     na = lay.na[secs]
     nb = lay.nb[secs]
+    w = -(-na // P)
     # cross-matrix families: masks that TOUCH BOTH halves (high-only
     # masks become row matrices, low-only ones merge into the shared
     # column matrices), one family per distinct high-rest part
     cross_mrs = set()
+    col_vecs = set()   # (mr, mt, s_r): column channels' W and bidx
+    row_vecs = set()   # (mr, mt, s_a): row channels' ca
     diag_imag = False
-    for m, _pm, _signs, coeffs in plan.groups:
+    for m, _pm, signs, coeffs in plan.groups:
         mt, mr, ma = _split_mask(int(m), lbase.L, lay.La, lay.Lr)
         if ma and (mr or mt):
             cross_mrs.add(mr)
         if m == 0 and np.any(np.abs(np.imag(coeffs)) > 0):
             diag_imag = True
+        if world is not None and m:
+            signs = np.asarray(signs, dtype=np.int64)
+            if ma:
+                col_vecs.update((mr, mt, int(v)) for v in np.unique(
+                    (signs >> lay.La) & ((1 << lay.Lr) - 1)))
+            else:
+                row_vecs.update((mr, mt, int(v)) for v in np.unique(
+                    signs & ((1 << lay.La) - 1)))
     # matrices are deduplicated by content across sectors: low matrices
     # and cross matrices depend only on the low-half weight(s), so count
     # unique na values, not per-sector copies; high (row) matrices are
     # genuinely per sector pair (internal + two boundary families)
-    una = np.unique(na)
+    una = np.unique(P * w)
     low = int(np.sum(una ** 2))
-    high = 3 * int(np.sum(nb ** 2))
+    high = P * 3 * int(np.sum(nb ** 2))
     cross = 2 * len(cross_mrs) * int(np.sum(una ** 2))
-    diag = (2 if diag_imag else 1) * plan.dim_left
-    return cb * (low + high + cross + diag)
+    diag = (2 if diag_imag else 1) * int(np.sum(nb * P * w))
+    total = cb * (low + high + cross + diag)
+    if world is not None:
+        per_so = lambda keys: sum(bin(mr).count('1') + 1
+                                  for mr, _t, _s in keys)
+        total += P * int(np.sum(nb)) * per_so(col_vecs) * (8 + cb)
+        total += P * int(np.sum(w)) * per_so(row_vecs) * cb
+    return total
 
 
 class SectorPlan:
     """Host-side decomposition of an apply plan into sector channels. The
     matrices are numpy arrays of ``real_dtype`` (a torch or numpy real
-    dtype); the diagonal field is computed on ``device`` and kept there."""
+    dtype); the diagonal field is computed on ``device`` and kept there,
+    unless ``with_diag`` is False: then ``diag`` is None and
+    ``diag_terms`` (the mask-0 terms, (coefficient, sign) pairs) give it
+    at any rows (:func:`diagonal_at`, the alpha ring's per-rank
+    diagonal)."""
 
-    def __init__(self, plan, left, right, real_dtype, device='cpu'):
+    def __init__(self, plan, left, right, real_dtype, device='cpu',
+                 with_diag=True):
         real_dtype = _np_dtype(real_dtype)
         lbase, self.xparity = _resolve(left)
         L, k = lbase.L, lbase.k
@@ -403,9 +434,12 @@ class SectorPlan:
         # the JAX package's build at large L (the reference's
         # PrecomputeDiagonal analog, bpetsc_template_1.c:169-202)
         self.diag = None
-        if diag_terms:
-            self.diag = _device_diagonal(plan, diag_terms, real_dtype,
-                                         device)
+        self.diag_terms = diag_terms
+        if diag_terms and with_diag:
+            dtype = torch.float64 if real_dtype == np.float64 \
+                else torch.float32
+            self.diag = diagonal_at(plan, diag_terms, torch.arange(
+                self.dim, dtype=torch.int64, device=device), dtype)
 
         self._dedup()
 
@@ -454,21 +488,21 @@ class SectorPlan:
         return len(self.col_channels) + len(self.row_channels)
 
 
-def _device_diagonal(plan, diag_terms, real_dtype, device):
-    """(Dr, Di|None) tensors of the diagonal field on ``device``:
-    D[row] = sum_t c_t (-1)^{pc(state(row) & s_t)}, in row chunks."""
-    dtype = torch.float64 if real_dtype == np.float64 else torch.float32
+def diagonal_at(plan, diag_terms, rows, dtype):
+    """(Dr, Di|None) of the diagonal field D[row] = sum_t c_t
+    (-1)^{pc(state(row) & s_t)} at the global rows ``rows`` (an int64
+    tensor on the device; a row < 0 gets 0), in row chunks: every row for
+    the one-device engine, the alpha ring's rows in its own layout."""
     has_imag = any(abs(c.imag) > 0 for c, _s in diag_terms)
-    dim = plan.dim_left
-    dr = torch.zeros(dim, dtype=dtype, device=device)
-    di = torch.zeros(dim, dtype=dtype, device=device) if has_imag else None
-    for start in range(0, dim, 1 << CHUNK_BITS):
-        rows = torch.arange(start, min(start + (1 << CHUNK_BITS), dim),
-                            dtype=torch.int64, device=device)
-        states = plan.row_states(rows)
-        sl = slice(start, start + len(rows))
+    dr = torch.zeros(rows.shape, dtype=dtype, device=rows.device)
+    di = torch.zeros_like(dr) if has_imag else None
+    for start in range(0, len(rows), 1 << CHUNK_BITS):
+        sl = slice(start, start + (1 << CHUNK_BITS))
+        r = rows[sl]
+        ok = (r >= 0).to(dtype)
+        states = plan.row_states(r.clamp(min=0))
         for c, s in diag_terms:
-            w = (1 - 2 * parity_t(states & s)).to(dtype)
+            w = (1 - 2 * parity_t(states & s)).to(dtype) * ok
             if c.real:
                 dr[sl] += c.real * w
             if has_imag and c.imag:

@@ -108,21 +108,24 @@ def barrier():
             dist.barrier()
 
 
-def gather_rows(t, to_all=True):
+def gather_rows(t, to_all=True, dim=None):
     """Each rank's (..., n) tensor put together along the last axis in rank
     order: on every rank, or with ``to_all=False`` on rank 0 only (None on
-    the others)."""
-    if world_size() == 1:
-        return t
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(world_size())]
-    if to_all:
-        dist.all_gather(parts, t)
-    else:
-        dist.gather(t, parts if rank() == 0 else None, dst=0)
-        if rank() != 0:
-            return None
-    return torch.cat(parts, dim=-1)
+    the others). With ``dim``, the rows from ``dim`` on (the pad rows of
+    ``parallel.mesh``'s layout) are dropped."""
+    if world_size() > 1:
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(world_size())]
+        if to_all:
+            dist.all_gather(parts, t)
+        else:
+            dist.gather(t, parts if rank() == 0 else None, dst=0)
+            if rank() != 0:
+                return None
+        t = torch.cat(parts, dim=-1)
+    if dim is not None and t.shape[-1] != dim:
+        t = t[..., :dim]
+    return t
 
 
 def rank_seed(seed):

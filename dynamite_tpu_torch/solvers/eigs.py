@@ -20,11 +20,13 @@ def random_start(dim, dtype, device, seed=0):
     """Normalized random start vector: this rank's (2, local_dim) rows of a
     space of dimension ``dim``, drawn on the device from a
     ``torch.Generator`` seeded with (seed, rank) and normalized over all
-    ranks. The vector depends on the world size."""
+    ranks, its pad rows 0 (``parallel.mesh``). The vector depends on the
+    world size."""
     gen = torch.Generator(device=device)
     gen.manual_seed(multihost.rank_seed(seed))
     w = torch.randn((2, mesh.local_dim(dim)), generator=gen, dtype=dtype,
                     device=device)
+    mesh.zero_pads_(w, dim)
     return w / krylov.norm(w)
 
 

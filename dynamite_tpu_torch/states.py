@@ -5,7 +5,8 @@ A State's data is a real tensor of shape (2, dim) — row 0 the real part,
 row 1 the imaginary part — the JAX package's layout (see
 :mod:`dynamite_tpu_torch.ops.cvec`). With a process group up
 (:mod:`dynamite_tpu_torch.parallel.multihost`), each rank holds only its
-(2, local_dim) rows (:mod:`dynamite_tpu_torch.parallel.mesh`); functions that
+(2, local_dim) rows (:mod:`dynamite_tpu_torch.parallel.mesh`), the rows past
+the dimension being pad rows that every setter leaves at 0; functions that
 take or give a whole vector as numpy gather or slice it.
 
 Reference semantics: src/dynamite/states.py (PETSc.Vec wrapper).
@@ -151,8 +152,8 @@ class State:
 
     @property
     def storage_dim(self):
-        """Length of this rank's state axis (the dimension on one
-        process)."""
+        """Length of this rank's state axis, pad rows included (the
+        dimension on one process)."""
         return mesh.local_dim(len(self))
 
     @property
@@ -229,7 +230,7 @@ class State:
     def set_uniform(self):
         """Uniform superposition over the subspace's basis states."""
         data = self._zeros()
-        data[0] = 1 / np.sqrt(len(self))
+        data[0, :mesh.valid_rows(len(self))] = 1 / np.sqrt(len(self))
         self._data = data
         self.set_initialized()
 
@@ -240,7 +241,8 @@ class State:
         seeded with (seed, rank), so the state depends on the world size,
         as the JAX package's depends on its mesh. The same seed and world
         size give the same state on the same device type; it does not
-        reproduce the JAX package's random stream."""
+        reproduce the JAX package's random stream. Pad rows are 0 whatever
+        the generator draws there."""
         if seed is None:
             seed = int(multihost.broadcast_from_host0(np.asarray(
                 [int.from_bytes(urandom(4), 'big', signed=False)],
@@ -250,6 +252,7 @@ class State:
         gen.manual_seed(multihost.rank_seed(seed))
         data = torch.randn((2, self.storage_dim), generator=gen,
                            dtype=config.real_dtype, device=device)
+        mesh.zero_pads_(data, len(self))
         if normalize:
             data = cvec.scale_real(data, 1.0 / float(cvec.norm(data)))
         self._data = data
@@ -259,8 +262,8 @@ class State:
         """Set each element to ``val_fn(state_int)`` evaluated along the
         subspace's basis (this rank's rows of it)."""
         first = mesh.row0(len(self))
-        n = self.storage_dim
-        vec = np.empty(n, dtype=np.complex128)
+        n = mesh.valid_rows(len(self))
+        vec = np.zeros(self.storage_dim, dtype=np.complex128)
         block = 65536
         for start in range(0, n, block):
             stop = min(n, start + block)
@@ -306,7 +309,7 @@ class State:
         ``to_all=False`` gathered to rank 0 only, and the other ranks get
         None (a collective: every rank calls it)."""
         self.assert_initialized()
-        data = multihost.gather_rows(self.data, to_all)
+        data = multihost.gather_rows(self.data, to_all, dim=len(self))
         if data is None:
             return None
         arr = data.detach().to('cpu', torch.float64).numpy()
@@ -324,10 +327,11 @@ class State:
             raise ValueError('value must be 0 or 1')
 
         first = mesh.row0(len(self))
-        states = self.subspace.idx_to_state(
-            np.arange(first, first + self.storage_dim, dtype=np.int64))
-        keep = torch.as_tensor(((states >> index) & 1) == value,
-                               device=self.data.device)
+        states = self.subspace.idx_to_state(np.arange(
+            first, first + mesh.valid_rows(len(self)), dtype=np.int64))
+        keep = np.zeros(self.storage_dim, dtype=bool)
+        keep[:len(states)] = ((states >> index) & 1) == value
+        keep = torch.as_tensor(keep, device=self.data.device)
         data = cvec.mask_rows(self.data, keep)
         self.data = cvec.scale_real(data, 1.0 / float(cvec.norm(data)))
 

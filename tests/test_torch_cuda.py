@@ -658,3 +658,109 @@ def test_distributed_dot_on_nccl(card, tmp_path):
     assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
     assert recs[0]['inf_norm'] == pytest.approx(H._infinity_norm_host(),
                                                 rel=1e-12)
+
+
+def _virtual(H, sub, world, **settings):
+    """The one-device kernel and a kernel over ``world`` virtual ranks of
+    one operator and subspace, built under ``settings`` (config)."""
+    from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
+    saved = {k: getattr(config, k) for k in settings}
+    try:
+        for k, v in settings.items():
+            setattr(config, k, v)
+        msc = H._msc_on(sub)
+        return (OperatorKernel(msc, sub, sub),
+                OperatorKernel(msc, sub, sub,
+                               transport=VirtualTransport(world)))
+    finally:
+        for k, v in saved.items():
+            setattr(config, k, v)
+
+
+def _padded_on(v, world, dtype, device):
+    from dynamite_tpu_torch.parallel import mesh
+    x = torch.zeros((2, mesh.storage_dim(v.shape[1], world)), dtype=dtype,
+                    device=device)
+    x[:, :v.shape[1]] = torch.as_tensor(v, dtype=dtype, device=device)
+    return x
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('world', [2, 3, 4, 8])
+def test_sharded_ell_on_card(card, world, dtype):
+    """Each virtual rank's ``ell_apply`` on its own tables (Auto of
+    localized(12), 924 rows: 3 and 8 ranks pad), with the gathered input,
+    gives its rows bitwise what the one-device kernel gives; the pads are
+    0; the ranks' nonzeros add up to the one-device count; each launch is
+    counted."""
+    from dynamite_tpu_torch.ops.ell import ell_apply
+    H = models.localized(12)
+    sub = subspaces.Auto(H, 'U' * 6 + 'D' * 6)
+    one, over = _virtual(H, sub, world)
+    assert (one.engine, over.engine) == ('ell', 'ell')
+    dim = sub.get_dimension()
+    v = _planes(dim, seed=world)
+    x = _padded_on(v, world, dtype, card)
+    y1 = one.apply(x[:, :dim].contiguous())
+    before = ell_apply.launches
+    y = over.apply(x)
+    assert ell_apply.launches == before + world
+    assert y.is_cuda and torch.equal(y[:, :dim], y1)
+    assert not y[:, dim:].any()
+    nnz = sum(over.sharded.tables[r].on(dtype, y.device).nnz
+              for r in range(world))
+    assert nnz == one.ell_tables.on(dtype, y.device).nnz
+
+
+@pytest.mark.parametrize('world', [2, 3, 4])
+def test_alpha_ring_on_card(card, world):
+    """The sector engine's alpha ring over virtual ranks (localized(12) on
+    SpinConserve(12, 6)) against the one-device sector engine on the card,
+    within 1e-5 relative in float32, and against the same ring on the
+    CPU."""
+    H = models.localized(12)
+    sub = subspaces.SpinConserve(12, 6)
+    H.add_subspace(sub)
+    one, over = _virtual(H, sub, world)
+    assert (one.engine, over.engine) == ('sector', 'sector_ring')
+    dim = sub.get_dimension()
+    v = _planes(dim, seed=3)
+    x = _padded_on(v, world, torch.float32, card)
+    y1 = one.apply(x[:, :dim].contiguous())
+    y = over.apply(x)
+    assert not y[:, dim:].any()
+    assert float((y[:, :dim] - y1).abs().max() / y1.abs().max()) <= 1e-5
+    y_cpu = over.apply(x.cpu())
+    assert float((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()) <= 1e-5
+
+
+def test_general_routes_on_nccl(card, tmp_path):
+    """The general routes over one rank per GPU on NCCL (up to 4; at 3
+    Full(8) leaves the XOR route): the route on every rank, pads 0, the
+    dot within 1e-12 of the numpy oracle, evolve within 1e-10 of
+    expm_multiply, eigenvalues within 1e-10 of eigvalsh (float64); needs
+    two GPUs or more."""
+    n_gpus = torch.cuda.device_count()
+    if n_gpus < 2:
+        pytest.skip('needs two GPUs or more')
+    from tests.test_torch_distributed import (GENERAL, _general_cases,
+                                              _general_model, _spawn)
+    world = min(n_gpus, 4)
+    v = _planes(70, seed=5)
+    np.save(tmp_path / 'v.npy', v)
+    recs = _spawn('general', world, tmp_path, device='cuda')
+    for case in _general_cases(world):
+        space, _settings, route = GENERAL[case]
+        H, sub = _general_model('dynamite_tpu_torch', space)
+        ranks = [r[case] for r in recs]
+        assert all(r['engine'] == route and r['pads_zero'] for r in ranks)
+        M = H.to_numpy()
+        x = v if space != 'full' else _planes(256, seed=6)
+        x = x[0] + 1j * x[1]
+        got = np.load(tmp_path / f'{case}_hv.npy')
+        assert np.max(np.abs(got - M @ x)) <= 1e-12 * np.max(np.abs(M @ x))
+        oracle = scipy.sparse.linalg.expm_multiply(-1j * 0.5 * M, x)
+        assert np.linalg.norm(np.load(tmp_path / f'{case}_evolved.npy')
+                              - oracle) < 1e-10
+        exact = np.linalg.eigvalsh(M.toarray())[:2]
+        assert np.allclose(ranks[0]['evals'], exact, rtol=1e-10, atol=0)

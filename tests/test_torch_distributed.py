@@ -1,6 +1,9 @@
 """
-The port's distributed XOR path on 2 and 4 spawned ranks (torch.distributed
-on gloo, CPU tensors) against numpy/scipy oracles and the JAX package.
+The port's distributed paths on spawned ranks (torch.distributed on gloo,
+CPU tensors) against numpy/scipy oracles and the JAX package: the XOR path
+on 2 and 4 ranks, and the general routes over ranks (the sector engine's
+alpha ring, each rank's ELL tables, the ring sweep) on 2, 3 and 4 ranks,
+with the padded row layout where the dimension does not divide the world.
 
 Each case spawns its ranks once. A rank runs this file as a script (see the
 bottom): it imports torch and the port but neither JAX nor
@@ -237,10 +240,100 @@ def test_operator_differing_by_rank_raises(world, tmp_path):
     assert all('inconsistent across ranks' in r['error'] for r in recs)
 
 
-def test_three_ranks_not_implemented(tmp_path):
-    recs = _spawn('three', 3, tmp_path)
-    assert all('general all-gather sharded path' in r['error']
-               for r in recs)
+# the general routes over ranks: (model, subspace, the port's config, the
+# route every rank must take). SpinConserve(8, 4) and Auto of localized(8)
+# have 70 rows, so 3 and 4 ranks pad; Full(8) over 3 ranks leaves the XOR
+# route.
+GENERAL = {
+    'sector_ring': ('sc', {}, 'sector_ring'),
+    'ell': ('sc', {'use_sector': False}, 'ell'),
+    'auto': ('auto', {}, 'ell'),
+    'full': ('full', {}, 'ell'),
+    'sweep_ring': ('sc', {'use_sector': False, 'use_ell': False,
+                          'sharded_ring_general': True}, 'sweep_ring'),
+}
+
+
+def _general_cases(world):
+    return [c for c in GENERAL if c != 'full' or world == 3]
+
+
+def _general_model(pkg, space):
+    import importlib
+    models = importlib.import_module(pkg + '.models')
+    subspaces = importlib.import_module(pkg + '.subspaces')
+    H = models.localized(L)
+    sub = {'sc': lambda: subspaces.SpinConserve(L, L // 2),
+           'auto': lambda: subspaces.Auto(H, 'U' * (L // 2) + 'D' * (L // 2)),
+           'full': lambda: subspaces.Full(L=L)}[space]()
+    H.add_subspace(sub)
+    return H, sub
+
+
+def _jax_sharded_dot(space, world, v):
+    """The JAX package's sharded apply of the same operator on its virtual
+    mesh of ``world`` devices (tests/integration/test_sharded.py), through
+    its sharded ELL tables: its alpha ring and sweeps compute the same
+    product, but take 15-140 s to compile here."""
+    import jax.numpy as jnp
+    from dynamite_tpu import config as ref_config
+    from dynamite_tpu.parallel.mesh import device_put_state, make_mesh
+    saved = ref_config.mesh
+    try:
+        ref_config._L = None
+        ref_config._subspace = None
+        ref_config._mesh = make_mesh(mesh_shape=(world,))
+        ref_config.use_sector = False
+        H, sub = _general_model('dynamite_tpu', space)
+        kernel = H.get_mat(subspaces=(sub, sub))
+        dim = sub.get_dimension()
+        x = device_put_state(jnp.asarray(v), ref_config.mesh, dim)
+        y = np.asarray(kernel.traceable(sharded=True)(x))[:, :dim]
+    finally:
+        ref_config._mesh = saved
+        ref_config.use_sector = True
+    return y[0] + 1j * y[1]
+
+
+@pytest.mark.parametrize('world', [2, 3, 4])
+def test_general_routes(world, tmp_path):
+    """H.dot, evolve and eigsolve through each general route over ranks
+    (one spawn runs every case of ``_general_cases``): the route on every
+    rank, the pad rows 0 after every apply and solve, the dot within 1e-12
+    of msc_to_matrix and of the JAX package's sharded apply, evolve within
+    1e-10 of expm_multiply, eigenvalues within 1e-10 of eigvalsh, every
+    rank taking the same decisions, and the tables' bytes over the ranks,
+    asked on rank 0 alone, the sum of what each rank holds."""
+    from scipy.sparse.linalg import expm_multiply
+    v = _planes(70, seed=5)
+    np.save(tmp_path / 'v.npy', v)
+    recs = _spawn('general', world, tmp_path)
+    x = v[0] + 1j * v[1]
+    for case in _general_cases(world):
+        space, _settings, route = GENERAL[case]
+        H, sub = _general_model('dynamite_tpu_torch', space)
+        ranks = [r[case] for r in recs]
+        assert all(r['engine'] == route for r in ranks), case
+        assert all(r['pads_zero'] for r in ranks), case
+        keys = ('engine', 'conserves', 'evals', 'stats')
+        assert all(all(r[k] == ranks[0][k] for k in keys) for r in ranks)
+        assert ranks[0]['table_bytes'] == sum(r['own_bytes']
+                                              for r in ranks), case
+        assert (ranks[0]['table_bytes'] > 0) == (route != 'sweep_ring')
+        M = H.to_numpy()
+        xc = x if space != 'full' else _planes(256, seed=6)
+        if space == 'full':
+            xc = xc[0] + 1j * xc[1]
+        got = np.load(tmp_path / f'{case}_hv.npy')
+        assert _rel(got, M @ xc) < 1e-12, case
+        ref = _jax_sharded_dot(space, world, np.stack([xc.real, xc.imag]))
+        assert _rel(got, ref) < 1e-12, case
+        oracle = expm_multiply(-1j * 0.5 * M, xc)
+        evolved = np.load(tmp_path / f'{case}_evolved.npy')
+        assert np.linalg.norm(evolved - oracle) < 1e-10, case
+        exact = np.linalg.eigvalsh(M.toarray())[:2]
+        assert np.allclose(ranks[0]['evals'], exact, rtol=1e-10, atol=0)
+        assert max(ranks[0]['residuals']) < 1e-8, case
 
 
 def test_one_process_helpers_are_no_ops():
@@ -368,13 +461,55 @@ def _rank_main(case, rank, world, store, out_dir, device):
             rec['error'] = ''
         except RuntimeError as err:
             rec['error'] = str(err)
-    elif case == 'three':
-        H, sub = _model('dynamite_tpu_torch', 'full')
-        try:
-            State(state='random', subspace=sub, seed=1)
-            rec['error'] = ''
-        except NotImplementedError as err:
-            rec['error'] = str(err)
+    elif case == 'general':
+        from dynamite_tpu_torch import computations
+        from dynamite_tpu_torch.parallel import mesh
+        for name in _general_cases(world):
+            space, settings, _route = GENERAL[name]
+            saved = {k: getattr(config, k) for k in settings}
+            for k, val in settings.items():
+                setattr(config, k, val)
+            H, sub = _general_model('dynamite_tpu_torch', space)
+            dim = sub.get_dimension()
+            keep = mesh.valid_rows(dim)
+
+            def pads_zero(psi):
+                return bool((psi.data[:, keep:] == 0).all())
+
+            one = rec[name] = {}
+            v = load('v.npy') if space != 'full' else _planes(256, seed=6)
+            psi = state(sub, v)
+            hpsi = H.dot(psi)
+            kernel = H.get_mat(subspaces=(sub, sub))
+            one['engine'] = kernel.engine
+            one['conserves'] = kernel.conserves_hint
+            dtype = config.real_dtype
+            one['own_bytes'] = (
+                0 if kernel.sharded is None
+                else kernel.sharded.tables[rank].nbytes(dtype, config.device)
+                if kernel.engine == 'ell'
+                else kernel.sharded.table_bytes(rank, dtype, config.device))
+            if rank == 0:
+                # on one rank alone: a collective in it would hang
+                one['table_bytes'] = H._engine_table_bytes(world)
+            save(f'{name}_hv.npy', hpsi.to_numpy())
+            out = H.evolve(psi, t=0.5, tol=1e-12)
+            save(f'{name}_evolved.npy', out.to_numpy())
+            evals, evecs = H.eigsolve(nev=2, getvecs=True)
+            one['evals'] = [float(e) for e in evals]
+            one['stats'] = {k: v for k, v in
+                            computations.last_solve_stats.items()
+                            if not k.endswith('_s')}
+            one['residuals'] = []
+            ok = pads_zero(psi) and pads_zero(hpsi) and pads_zero(out)
+            for lam, vec in zip(evals, evecs):
+                ok = ok and pads_zero(vec)
+                r = H.dot(vec)
+                r.axpy(-lam, vec)
+                one['residuals'].append(r.norm() / abs(lam))
+            one['pads_zero'] = ok
+            for k, val in saved.items():
+                setattr(config, k, val)
     else:
         raise ValueError(case)
 

@@ -204,20 +204,35 @@ def test_conserves_matches_reference():
         H.get_mat()
 
 
-def test_unported_subspaces_name_their_roadmap_item(monkeypatch):
-    """Explicit and Auto are ported; what is not yet, their engine over
-    ranks, raises naming its item (ROADMAP.md queue 1, item 12)."""
-    from dynamite_tpu_torch.ops.apply import OperatorKernel
+def test_unported_subspaces_name_their_roadmap_item(monkeypatch, tmp_path):
+    """Explicit and Auto are ported, over ranks too (their ELL tables built
+    per rank: here over two virtual ranks); what is not yet over ranks, an
+    XParity pair over Full, state files and ``XParity.convert_state``,
+    raises naming its item (ROADMAP.md queue 1, item 12)."""
+    from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
     from dynamite_tpu_torch.parallel import multihost
+    from dynamite_tpu_torch.states import State
     H = models.heisenberg(L)
     auto = subspaces.Auto(H, 'UUUUDDDD')
     explicit = subspaces.Explicit([0, 1], L=L)
     assert auto.get_dimension() == 70 and explicit.get_dimension() == 2
-    monkeypatch.setattr(multihost, 'world_size', lambda: 2)
     H.reduce_msc()
     for sub in (auto, explicit):
-        with pytest.raises(NotImplementedError, match='ROADMAP.*item 12'):
-            OperatorKernel(H.msc, sub, sub)
+        assert OperatorKernel(H.msc, sub, sub,
+                              transport=VirtualTransport(2)).engine == 'ell'
+    xfull = subspaces.XParity(subspaces.Full(L=L))
+    psi = State(state=0, subspace=xfull)
+    saved = State(state=0, subspace=subspaces.Full(L=L))
+    saved.save(str(tmp_path / 'psi'))
+    monkeypatch.setattr(multihost, 'world_size', lambda: 2)
+    with pytest.raises(NotImplementedError, match='ROADMAP.*item 12'):
+        OperatorKernel(xfull.reduce_msc(H.msc), xfull, xfull)
+    with pytest.raises(NotImplementedError, match='ROADMAP.*item 12'):
+        xfull.convert_state(psi)
+    with pytest.raises(NotImplementedError, match='ROADMAP.*item 12'):
+        saved.save(str(tmp_path / 'again'))
+    with pytest.raises(NotImplementedError, match='ROADMAP.*item 12'):
+        State.from_file(str(tmp_path / 'psi'))
 
 
 def test_port_imports_no_jax():

@@ -350,19 +350,22 @@ def test_operator_projected_away_is_zero():
 
 
 def test_sector_engine_and_xparity_refuse_ranks(monkeypatch):
-    """With a process group of two ranks, the sector engine and XParity
-    pairs raise, naming the distributed item (ROADMAP.md queue 1, item 12);
-    Full still builds."""
+    """With a process group of two ranks, SpinConserve pairs, plain and
+    XParity-wrapped, take the sector engine's alpha ring (ops/sector_shard.py,
+    whose build needs no collective), XParity over Full still raises,
+    naming the distributed item (ROADMAP.md queue 1, item 12), and Full
+    builds the XOR route."""
     from dynamite_tpu_torch.ops.apply import OperatorKernel
     from dynamite_tpu_torch.parallel import multihost
     monkeypatch.setattr(multihost, 'world_size', lambda: 2)
     H = models.heisenberg(L)
     H.reduce_msc()
     for sub in (subspaces.SpinConserve(L, L // 2),
-                subspaces.XParity(subspaces.Full(L=L)),
                 subspaces.XParity(subspaces.SpinConserve(L, L // 2))):
         msc = H.msc if sub.product_state_basis else sub.reduce_msc(H.msc)
-        with pytest.raises(NotImplementedError, match='item 12'):
-            OperatorKernel(msc, sub, sub)
+        assert OperatorKernel(msc, sub, sub).engine == 'sector_ring'
+    sub = subspaces.XParity(subspaces.Full(L=L))
+    with pytest.raises(NotImplementedError, match='item 12'):
+        OperatorKernel(sub.reduce_msc(H.msc), sub, sub)
     full = subspaces.Full(L=L)
     assert OperatorKernel(H.msc, full, full).tables is not None
