@@ -19,12 +19,13 @@ on the same sector discovered by Auto through the ELL kernel:
    card, Full and both Parity sectors, long_range(24), and localized(24) on
    XParity(Full(24)) in both sectors, float32 and float64, with times,
    nnz/s, the bound, cuSPARSE's CSR SpMV of the same matrix, and the
-   diagonal stream's build (its own kernel) against its plain version, with
-   its time and bytes;
+   diagonal stream's build (its own kernel, a Walsh-Hadamard transform per
+   tile) against its plain version, with its time per call and alone,
+   bytes and bound (see diagonal_record);
 3. ``kernel_sharded``: the sharded route on P = 1, 2, 4, 8 virtual shards
    of one vector, each from its row offset and partner blocks, on the same
-   cases: put together equal to the one-device route, each shard against
-   its plain version;
+   cases: put together equal to the one-device route, each shard and its
+   diagonal stream against its plain version;
 4. ``sector``: the sector engine (dense matmuls, torch ops) against its
    plain version (the on-the-fly row sweep) on the card: heisenberg(24) on
    SpinConserve(24, 12), localized(24) on XParity(SpinConserve(24, 12)),
@@ -59,6 +60,10 @@ on the same sector discovered by Auto through the ELL kernel:
    solve (target 0, capped, recorded converged or not) and the half-chain
    entropy of the evolved Neel state, card against host; the child of
    phase 6 runs both methods in float64 at L=16 against scipy's eigsh;
+   then ``diagonal``: the diagonal stream of the folded operator
+   (localized(24) - target)^2 that eigsolve(target_method='fold') builds
+   (1,016 diagonal terms), float32 and float64, against its plain version
+   (see phase_diagonal);
 10. ``general``: Auto(localized(24), 'U'*12 + 'D'*12) (the host BFS and
    the canonical order timed; dim 2,704,156, the state list
    SpinConserve(24, 12)'s), the ELL kernel (``csrc/ell_apply.cu``) on its
@@ -118,6 +123,13 @@ times the XOR-dense engine at every split La (see xor_dense_la_sweep).
 
 runs the environment, the general phase and the general routes over
 virtual ranks alone (see phase_general, phase_general_sharded).
+
+    python3 chip_smoke.py --diagonal [TREE ...]
+
+times the diagonal kernel per call and alone on localized(24),
+long_range(24) and the folded localized(24), float32 and float64, for each
+checkout of the repository given (default this one), in turn; A B B A
+compares two trees on one card (see diagonal_times).
 """
 
 import json
@@ -134,6 +146,8 @@ GROUP_COSTS = '--group-costs'
 SECTOR_FORMS = '--sector-forms'
 XOR_DENSE_LA = '--xor-dense-la'
 GENERAL_ONLY = '--general'
+DIAGONAL = '--diagonal'
+CHILD_DIAGONAL = '--child-diagonal'
 
 # error bounds of the kernel against its plain version: max|dy| / max|y|.
 # Both sum the same terms in float arithmetic of the working type but in
@@ -148,6 +162,12 @@ KERNEL_TOL = {'float32': 1e-5, 'float64': 1e-12}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {'float32': 67e12, 'float64': 34e12}
 GEMM_PEAK_FLOPS = {'float32': 67e12, 'float64': 67e12}
+# the diagonal stream's bound counts a fast Walsh-Hadamard transform per
+# tile of 2**12 rows (ops/xor_apply.py DIAG_TILE_BITS)
+DIAG_BOUND_TILE_BITS = 12
+# the folded operator's target in ``--diagonal``: (H - target)^2 has the
+# same diagonal terms for every nonzero target
+DIAG_FOLD_TARGET = 0.3
 
 # the ground-state energies the JAX package printed for its eigsolve_L24
 # (localized(24) on SpinConserve(24, 12)) and double_L22 stages
@@ -390,10 +410,30 @@ def phase_kernel(L=24):
     return rows
 
 
-def diagonal_record(tables, dtype, plain_reps):
+def diagonal_bound(dim, planes, itemsize, adds):
+    """(ms, 'bytes' or 'operations'): the least time an H100 could take to
+    build a diagonal stream of ``dim`` rows -- the larger of its bytes
+    written (planes x dim x itemsize; it reads nothing per row) over HBM
+    bandwidth, and the operations of a fast Walsh-Hadamard transform per
+    tile of 2**DIAG_BOUND_TILE_BITS rows: dim x tile bits adds per plane,
+    plus ``adds`` (the diagonal's nonzero coefficient parts) per tile."""
+    bits = min(DIAG_BOUND_TILE_BITS, dim.bit_length() - 1)
+    dt = 'float32' if itemsize == 4 else 'float64'
+    by_bytes = planes * dim * itemsize / HBM_BYTES_PER_S * 1e3
+    ops = planes * dim * bits + max(1, dim >> bits) * adds
+    by_ops = ops / PEAK_FLOPS[dt] * 1e3
+    return max(by_bytes, by_ops), ('bytes' if by_bytes >= by_ops
+                                   else 'operations')
+
+
+def diagonal_record(tables, dtype, plain_reps, reps=10):
     """The diagonal stream of the whole space: its build (the diagonal
-    kernel) against its plain version, its time, bytes and bound. Zeros
-    when the operator keeps mask 0 in the group loop."""
+    kernel) against its plain version, its time per call (CUDA events
+    around the wrapper's call) and of the kernel alone (torch.profiler's
+    kernel duration over ``reps`` calls), bytes and bound
+    (:func:`diagonal_bound`). ``plain_reps`` None skips the plain version's
+    time (not its check). Zeros when the operator keeps mask 0 in the group
+    loop."""
     import numpy as np
     import torch
     from dynamite_tpu_torch.ops.xor_apply import (xor_diagonal,
@@ -404,21 +444,133 @@ def diagonal_record(tables, dtype, plain_reps):
     st = tables.for_layout(tables.nbits)
     d = xor_diagonal(st, 0, dtype, 'cuda')
     want = xor_diagonal_reference(st, 0, dtype, 'cuda')
+    torch.cuda.synchronize()
+    if not torch.isfinite(d).all():
+        raise RuntimeError(f'{dt}: non-finite diagonal stream')
     abs_err = float((d - want).abs().max())
-    ms = cuda_ms(lambda: xor_diagonal(st, 0, dtype, 'cuda'), reps=10)
-    plain_ms = cuda_ms(lambda: xor_diagonal_reference(st, 0, dtype, 'cuda'),
-                       *plain_reps)
+    rel_err = abs_err / float(want.abs().max())
+    del want
+
+    def call():
+        return xor_diagonal(st, 0, dtype, 'cuda')
+
+    ms = cuda_ms(call, reps=reps)
+    # the kernel alone: per launch (one a call) over the launches the trace
+    # holds. The profiler's trace of the card drops events at times (17 to
+    # 19 of 20 launches traced, or none in a long run): three tries, then
+    # "not measured" (None)
+    kernel_ms, traced = None, 0
+    for _ in range(3):
+        prof = profile_window(call, n=reps, top=5)
+        seen = [k for k in prof.get('top_kernels', [])
+                if 'xor_diagonal' in k['name']]
+        if seen:
+            traced = round(sum(k['launches'] for k in seen) * reps)
+            kernel_ms = (sum(k['ms'] for k in seen)
+                         / sum(k['launches'] for k in seen))
+            break
+    plain_ms = None
+    if plain_reps is not None:
+        plain_ms = cuda_ms(
+            lambda: xor_diagonal_reference(st, 0, dtype, 'cuda'),
+            *plain_reps)
     adds = (np.count_nonzero(tables.diag_c.real)
             + np.count_nonzero(tables.diag_c.imag))
-    by_bytes = d.numel() * d.element_size() / HBM_BYTES_PER_S * 1e3
-    by_ops = tables.dim * adds / PEAK_FLOPS[dt] * 1e3
+    bound_ms, bound_by = diagonal_bound(tables.dim, d.shape[0],
+                                        d.element_size(), adds)
     return {'diag_terms': len(tables.diag_s), 'diag_planes': d.shape[0],
             'diag_bytes': d.numel() * d.element_size(),
             'diag_max_abs_err': abs_err,
-            'diag_rel_err': abs_err / float(want.abs().max()),
-            'diag_build_ms': ms, 'diag_plain_ms': plain_ms,
-            'diag_bound_ms': max(by_bytes, by_ops),
-            'diag_bound_by': 'bytes' if by_bytes >= by_ops else 'operations'}
+            'diag_rel_err': rel_err,
+            'diag_build_ms': ms, 'diag_kernel_ms': kernel_ms,
+            'diag_kernel_launches_traced': traced,
+            'diag_plain_ms': plain_ms,
+            'diag_bound_ms': bound_ms, 'diag_bound_by': bound_by}
+
+
+def diagonal_cases(L, target):
+    """(name, XorTables) of the diagonal records: localized(L) and
+    long_range(L) on Full(L), and the folded operator (H - target)^2 of
+    localized(L) (``computations._folded_msc``, as
+    eigsolve(target_method='fold') builds it) on Full(L)."""
+    from dynamite_tpu_torch import computations
+    from dynamite_tpu_torch.models import localized, long_range
+    from dynamite_tpu_torch.operators import Operator
+    from dynamite_tpu_torch.subspaces import Full
+    out = []
+    for name, make in (
+            ('localized_full', lambda: localized(L)),
+            ('long_range_full', lambda: long_range(L)),
+            ('folded_localized_full', lambda: Operator.from_msc(
+                computations._folded_msc(localized(L), target)))):
+        H = make()
+        H.add_subspace(Full(L=L))
+        tables = H.get_mat().tables
+        if tables is None or not tables.use_diag:
+            raise RuntimeError(f'{name}: no XOR tables with a diagonal '
+                               'stream')
+        out.append((name, tables))
+    return out
+
+
+def phase_diagonal(target, L=24):
+    """The diagonal stream of the folded localized(24) at the target
+    phase's target (1,016 diagonal terms), float32 and float64, against
+    its plain version (3 reps after 1 warm-up)."""
+    import torch
+    rows = []
+    name, tables = diagonal_cases(L, target)[2]
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace('torch.', '')
+        rec = {'case': name, 'dtype': dt, 'target': target,
+               **diagonal_record(tables, dtype, (3, 1))}
+        rows.append(rec)
+        if not rec['diag_rel_err'] <= KERNEL_TOL[dt]:
+            emit({'phase': 'diagonal', 'cases': rows})
+            raise RuntimeError(f'{name} {dt}: the diagonal kernel disagrees '
+                               f'with its plain version '
+                               f'({rec["diag_rel_err"]:.3e})')
+    emit({'phase': 'diagonal', 'cases': rows})
+    return rows
+
+
+def child_diagonal(tree):
+    """One tree's diagonal records (``--diagonal``): the package imported
+    from ``tree``, its kernel built there."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit('chip_smoke: no CUDA device is available')
+    sys.path.insert(0, os.path.abspath(tree))
+    from dynamite_tpu_torch import config
+    config.precision = 'single'
+    config._initialize()
+    for name, tables in diagonal_cases(24, DIAG_FOLD_TARGET):
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).replace('torch.', '')
+            rec = {'tree': tree, 'case': name, 'dtype': dt,
+                   **diagonal_record(tables, dtype, None, reps=20)}
+            emit(rec)
+            if not rec['diag_rel_err'] <= KERNEL_TOL[dt]:
+                raise RuntimeError(f'{tree} {name} {dt}: the diagonal '
+                                   'kernel disagrees with its plain version')
+
+
+def diagonal_times(trees):
+    """``python3 chip_smoke.py --diagonal [TREE ...]``: the diagonal
+    kernel's time per call and alone, on localized(24), long_range(24) and
+    the folded localized(24) (at DIAG_FOLD_TARGET), float32 and float64,
+    for each tree in turn (a checkout of the repository; default this one),
+    each in a child process that imports and builds that tree's package.
+    Give two trees as A B B A to compare them on one card."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit('chip_smoke: no CUDA device is available')
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    for tree in trees or [REPO]:
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        CHILD_DIAGONAL, tree], check=True, timeout=600)
 
 
 def flops_per_row(tables):
@@ -503,11 +655,15 @@ def phase_kernel_sharded(single_rows, L=24):
     the one-rank layout the distributed phase runs on one card. Put
     together, the shards must equal the one-device route (max |dy| = 0:
     the same terms per row in the same order); each shard must agree with
-    its plain version within KERNEL_TOL. Times are the sum of the P
+    its plain version within KERNEL_TOL. So must each shard's diagonal
+    stream (when the operator has one), and the shards' streams put
+    together must equal the one-device stream bitwise (each block takes
+    its rows of the same aligned tiles). Times are the sum of the P
     launches (plain: of the P plain calls, at P = 4 only)."""
     import torch
     from dynamite_tpu_torch.ops.xor_apply import (
-        xor_apply, xor_apply_sharded, xor_apply_sharded_reference)
+        xor_apply, xor_apply_sharded, xor_apply_sharded_reference,
+        xor_diagonal, xor_diagonal_reference)
     single_ms = {(r['case'], r['dtype']): r['ms'] for r in single_rows}
     rows = []
     for name, H, kernel, _plain_reps in kernel_cases(L):
@@ -516,6 +672,8 @@ def phase_kernel_sharded(single_rows, L=24):
             dt = str(dtype).replace('torch.', '')
             x = random_planes(tables.dim, dtype, seed=11)
             y_one = xor_apply(x, tables)
+            d_one = (xor_diagonal(tables.for_layout(tables.nbits), 0, dtype,
+                                  'cuda') if tables.use_diag else None)
             for P in (1, 2, 4, 8):
                 st = tables.for_layout(tables.nbits - (P.bit_length() - 1))
                 n = st.local_dim
@@ -536,9 +694,23 @@ def phase_kernel_sharded(single_rows, L=24):
                               for a, b in zip(parts, plain))
                 rel_err = max(float((a - b).abs().max() / b.abs().max())
                               for a, b in zip(parts, plain))
+                diag_rel_err, diag_diff_one = 0.0, 0.0
+                if tables.use_diag:
+                    ds = [xor_diagonal(st, me * n, dtype, 'cuda')
+                          for me in range(P)]
+                    for me, d in enumerate(ds):
+                        want = xor_diagonal_reference(st, me * n, dtype,
+                                                      'cuda')
+                        diag_rel_err = max(diag_rel_err, float(
+                            (d - want).abs().max() / want.abs().max()))
+                    diag_diff_one = float((torch.cat(ds, dim=1) - d_one)
+                                          .abs().max())
+                    del ds, want
                 row = {'case': name, 'dtype': dt, 'P': P,
                        'hi_list': st.hi_list,
                        'max_abs_diff_vs_one_device': diff_one,
+                       'diag_rel_err': diag_rel_err,
+                       'diag_max_abs_diff_vs_one_device': diag_diff_one,
                        'max_abs_err': abs_err, 'rel_err': rel_err,
                        'tol': KERNEL_TOL[dt],
                        'ms_sum_of_P': cuda_ms(lambda: run_all(
@@ -551,12 +723,14 @@ def phase_kernel_sharded(single_rows, L=24):
                     row['bound_ms'], row['bound_by'] = bound(
                         tables, dt, src_blocks=len(st.hi_list))
                 rows.append(row)
-                if not (diff_one == 0 and rel_err <= KERNEL_TOL[dt]):
+                if not (diff_one == 0 and rel_err <= KERNEL_TOL[dt]
+                        and diag_diff_one == 0
+                        and diag_rel_err <= KERNEL_TOL[dt]):
                     emit({'phase': 'kernel_sharded', 'cases': rows})
                     raise RuntimeError(f'{name} {dt} P={P}: the sharded '
                                        'route disagrees')
                 del blocks, srcs, parts, plain
-            del x, y_one
+            del x, y_one, d_one
     emit({'phase': 'kernel_sharded', 'cases': rows})
     return rows
 
@@ -1171,7 +1345,8 @@ def phase_target(L=24):
     finite counters required; then the Neel state evolved to NEEL_T under
     the same H, its half-chain entropy on the card against the host route
     (rdm_record) and past NEEL_MIN_ENTROPY, ||psi(t)|| within 1e-3 of 1.
-    Each solve counts its own launches (counted). Returns their sum."""
+    Each solve counts its own launches (counted). Returns their sum and
+    the target of (b)."""
     import numpy as np
     import torch
     from dynamite_tpu_torch.computations import eigsolve, evolve
@@ -1288,7 +1463,8 @@ def phase_target(L=24):
     if not (abs(nrm - 1.0) <= 1e-3 and neel['entropy'] >= NEEL_MIN_ENTROPY):
         raise RuntimeError(f'Neel state at t={NEEL_T}: norm {nrm}, '
                            f'half-chain entropy {neel["entropy"]}')
-    return add_counts(low_launches, b_launches, c_launches, n_launches)
+    return add_counts(low_launches, b_launches, c_launches,
+                      n_launches), target
 
 
 def phase_sector_solves(L=24):
@@ -2849,7 +3025,8 @@ def main():
     # layout: one block here, one block per rank in the distributed child
     ev_launches = run(phase_evolve)
     eig_launches, child_recs = run(phase_eigsolve)
-    target_launches = run(phase_target)
+    target_launches, target = run(phase_target)
+    diag_rows = run(phase_diagonal, target)
     launches = add_counts(ev_launches, eig_launches, target_launches)
     engines += child_recs['sector_double']['cases']
     run(phase_sector_solves)
@@ -2926,16 +3103,21 @@ def main():
         'library_ms': main_case['library_ms'],
     }, {
         # the diagonal stream of localized(24), float32, one device: built
-        # once per operator, dtype and layout on both routes; no single
-        # PyTorch call computes it
+        # once per operator, dtype and layout on both routes; ms is the
+        # wrapper's call, kernel_ms the kernel alone (torch.profiler); the
+        # error is the largest over the kernel cases and the folded
+        # localized(24) (phase diagonal), each shard's over every layout
+        # checked in kernel_sharded; no single PyTorch call computes it
         'name': 'xor_diagonal',
         'route': 'cuda',
         'source': 'dynamite_tpu_torch/csrc/xor_apply.cu',
         'replaces': 'dynamite_tpu/ops/pallas_apply.py:268 (compute_diagonal,'
                     ' the stream the kernel at :309 reads)',
         'launches': diag_builds,
-        'max_abs_err': max(r.get('diag_max_abs_err', 0.0) for r in rows),
+        'max_abs_err': max(r.get('diag_max_abs_err', 0.0)
+                           for r in rows + diag_rows),
         'ms': main_case['diag_build_ms'],
+        'kernel_ms': main_case['diag_kernel_ms'],
         'plain_ms': main_case['diag_plain_ms'],
         'bound_ms': main_case['diag_bound_ms'],
         'bound_by': main_case['diag_bound_by'],
@@ -2992,5 +3174,9 @@ if __name__ == '__main__':
         xor_dense_la_sweep()
     elif sys.argv[1:] == [GENERAL_ONLY]:
         general_only()
+    elif sys.argv[1:2] == [DIAGONAL]:
+        diagonal_times(sys.argv[2:])
+    elif sys.argv[1:2] == [CHILD_DIAGONAL]:
+        child_diagonal(sys.argv[2])
     else:
         main()

@@ -36,8 +36,8 @@
 // where its partners lie. The design:
 //
 // 1. The diagonal stream. d is built once per (operator, dtype, device,
-//    layout) by xor_diagonal_kernel and read beside x: one plane, two only
-//    when a diagonal coefficient is complex.
+//    layout) by xor_diagonal_kernel (below) and read beside x: one plane,
+//    two only when a diagonal coefficient is complex.
 // 2. Per-tile sign factoring. A block of threads covers an aligned tile of
 //    2^tile_bits rows. The host splits every sign mask s into s_hi (bits >=
 //    tile_bits) and s_lo and merges a group's terms that share s_lo into
@@ -68,6 +68,27 @@
 // pointers exists. The tables each tile needs are staged in shared memory;
 // the terms, read once per tile to build the slot coefficients, come through
 // the read-only cache.
+//
+// The diagonal stream, d(k) = sum over the mask-0 terms t of
+// c_t (-1)^parity(k & s_t), replaces compute_diagonal
+// (dynamite_tpu/ops/pallas_apply.py, plain JAX: one pass over the rows per
+// term). Split a row of an aligned tile of 2^kDiagTileBits rows into its
+// tile's high bits k_hi and its offset q in the tile. Then
+//
+//   d(k_hi + q) = sum_u g[u] (-1)^parity(q & u),
+//   g[u] = sum over the terms with s_lo = u of c_t (-1)^parity(k_hi & s_hi),
+//
+// so the tile's diagonal is the Walsh-Hadamard transform of g. A block
+// builds g for its tile (the terms' signs taken by all threads, one term
+// each; each slot -- a distinct s_lo -- then summed in term order by the
+// one thread that owns it: no atomics, the same order every run) and
+// transforms it: log2(tile) adds a row, whatever the number of terms, plus
+// the terms once per tile. What bounds it then is the bytes it writes. The
+// transform runs in registers (16 entries a thread), by warp shuffles and
+// through one shared-memory pass; each thread then stores its rows with
+// 16-byte stores. A block smaller than a tile (a rank's block of fewer
+// rows) transforms the aligned tile that holds it and stores its own rows,
+// so the stream does not depend on the layout.
 
 #include <algorithm>
 #include <cstdint>
@@ -83,6 +104,13 @@ constexpr int kMixed = 2;    // group flag: slots in more than sign class 0
 // vectors of R rows per thread in a pass (see xor_apply_kernel; VECS in
 // ops/xor_apply.py): 2 in float and in double
 constexpr int kVecs = 2;
+// the diagonal kernel's tile (DIAG_TILE_BITS in ops/xor_apply.py), threads
+// and entries of the tile per thread
+constexpr int kDiagTileBits = 12;
+constexpr int kDiagThreads = 256;
+constexpr int kDiagEntries = (1 << kDiagTileBits) / kDiagThreads;
+// terms whose signs a block takes at a time (see xor_diagonal_kernel)
+constexpr int kDiagChunk = 2048;
 
 }  // namespace
 
@@ -126,11 +154,9 @@ template <> struct VecOf<float, 4> { using type = float4; };
 template <> struct VecOf<double, 1> { using type = double; };
 template <> struct VecOf<double, 2> { using type = double2; };
 
-// R consecutive values from an R-aligned address, in one read-only load
 template <typename T, int R>
-__device__ __forceinline__ void load(const T* p, T (&v)[R]) {
-  using V = typename VecOf<T, R>::type;
-  const V w = __ldg(reinterpret_cast<const V*>(p));
+__device__ __forceinline__ void unpack(const typename VecOf<T, R>::type& w,
+                                       T (&v)[R]) {
   if constexpr (R == 1) {
     v[0] = w;
   } else if constexpr (R == 2) {
@@ -138,6 +164,20 @@ __device__ __forceinline__ void load(const T* p, T (&v)[R]) {
   } else {
     v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
   }
+}
+
+// R consecutive values from an R-aligned address, in one read-only load
+template <typename T, int R>
+__device__ __forceinline__ void load(const T* p, T (&v)[R]) {
+  using V = typename VecOf<T, R>::type;
+  unpack<T, R>(__ldg(reinterpret_cast<const V*>(p)), v);
+}
+
+// the same from shared memory
+template <typename T, int R>
+__device__ __forceinline__ void load_shared(const T* p, T (&v)[R]) {
+  using V = typename VecOf<T, R>::type;
+  unpack<T, R>(*reinterpret_cast<const V*>(p), v);
 }
 
 // R consecutive values to an R-aligned address, in one evict-first store
@@ -216,12 +256,10 @@ struct Tile {
 // have global high bits k_hi; ends with a barrier.
 template <typename T, int R>
 __device__ void stage(const XorArgs& a, const Tile<T, R>& t, int G,
-                      uint64_t k_hi, bool with_sources) {
+                      uint64_t k_hi) {
   for (int i = threadIdx.x; i < G; i += blockDim.x) {
-    if (with_sources) {
-      t.src[i].src = static_cast<const T*>(a.src[a.group_src[i]]);
-      t.src[i].mlo = a.group_mlo[i];
-    }
+    t.src[i].src = static_cast<const T*>(a.src[a.group_src[i]]);
+    t.src[i].mlo = a.group_mlo[i];
     t.groups[i].flags = a.group_flags[i];
 #pragma unroll
     for (int p = 0; p <= R; ++p) {
@@ -248,7 +286,6 @@ __device__ void stage(const XorArgs& a, const Tile<T, R>& t, int G,
     t.slots[s].slo = static_cast<uint32_t>(a.slot_slo[s]);
   }
   __syncthreads();
-  if (!with_sources) return;  // the diagonal skips nothing
   // a group whose terms cancel over the whole tile (XX + YY on two sites
   // above the tile, half the tiles) adds nothing: its source pointer
   // becomes null, and the tile skips its loads
@@ -337,7 +374,7 @@ xor_apply_kernel(const XorArgs a) {
   const int G = a.n_groups;
   const Tile<T, R> t(smem, G);
   const int64_t base = static_cast<int64_t>(blockIdx.x) << a.tile_bits;
-  stage<T, R>(a, t, G, static_cast<uint64_t>(a.row0 + base), true);
+  stage<T, R>(a, t, G, static_cast<uint64_t>(a.row0 + base));
 
   const int64_t n = a.local_dim;
   const uint32_t tile = 1u << a.tile_bits;
@@ -435,71 +472,216 @@ xor_apply_kernel(const XorArgs a) {
   }
 }
 
-// The diagonal stream: one group (its class ranges over R classes) whose
-// factor is d(k); writes diag_planes planes of local_dim rows.
 template <typename T, int R>
-__global__ void __launch_bounds__(kThreads)
-xor_diagonal_kernel(const XorArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Tile<T, R> t(smem, 1);
-  const int64_t base = static_cast<int64_t>(blockIdx.x) << a.tile_bits;
-  stage<T, R>(a, t, 1, static_cast<uint64_t>(a.row0 + base), false);
-
-  const uint32_t tile = 1u << a.tile_bits;
-  T* d = static_cast<T*>(a.y);
-  for (uint32_t q = threadIdx.x * R; q < tile; q += blockDim.x * R) {
-    const uint32_t qv[1] = {q};
-    T fr[1][R], fi[1][R];
-    group_factors<T, R, 1>(t, 0, qv, fr, fi);
-    store<T, R>(d + base + q, fr[0]);
-    if (a.diag_planes == 2) store<T, R>(d + a.local_dim + base + q, fi[0]);
-  }
-}
-
-template <typename T, int R>
-int launch_as(const XorArgs& a, bool diagonal, cudaStream_t stream) {
-  const int G = diagonal ? 1 : a.n_groups;
-  const size_t smem = Tile<T, R>::bytes(G, a.n_slots);
-  const void* fn =
-      diagonal ? reinterpret_cast<const void*>(xor_diagonal_kernel<T, R>)
-               : reinterpret_cast<const void*>(
-                     xor_apply_kernel<T, R, kVecs>);
+int launch_as(const XorArgs& a, cudaStream_t stream) {
+  const size_t smem = Tile<T, R>::bytes(a.n_groups, a.n_slots);
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        reinterpret_cast<const void*>(xor_apply_kernel<T, R, kVecs>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int threads = static_cast<int>(
       std::min<int64_t>(kThreads, (int64_t(1) << a.tile_bits) / R));
   const long long blocks = a.local_dim >> a.tile_bits;
-  if (diagonal) {
-    xor_diagonal_kernel<T, R><<<static_cast<unsigned int>(blocks), threads,
-                                smem, stream>>>(a);
-  } else {
-    xor_apply_kernel<T, R, kVecs>
-        <<<static_cast<unsigned int>(blocks), threads, smem, stream>>>(a);
-  }
+  xor_apply_kernel<T, R, kVecs>
+      <<<static_cast<unsigned int>(blocks), threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const XorArgs* a, bool diagonal, void* stream) {
+int launch(const XorArgs* a, void* stream) {
   const int R = a->rows_per_thread;
   const int64_t tile = int64_t(1) << a->tile_bits;
   if (a->n_srcs < 0 || a->n_srcs > kMaxSources || a->local_dim < 1 ||
       a->tile_bits < 0 || a->tile_bits > 30 || a->local_dim % tile ||
-      tile % R || a->n_groups < 0 ||
-      (diagonal && a->n_groups != 1)) {
+      tile % R || a->n_groups < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (R) {
-    case 1: return launch_as<T, 1>(*a, diagonal, s);
-    case 2: return launch_as<T, 2>(*a, diagonal, s);
+    case 1: return launch_as<T, 1>(*a, s);
+    case 2: return launch_as<T, 2>(*a, s);
     case 4:
-      if constexpr (sizeof(T) == 4) return launch_as<T, 4>(*a, diagonal, s);
+      if constexpr (sizeof(T) == 4) return launch_as<T, 4>(*a, s);
       break;
+    default: break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The diagonal stream of the aligned tile of 2^kDiagTileBits rows that
+// holds block blockIdx.x (see the note at the top), P planes (the real and,
+// with complex coefficients, the imaginary part), stored where the tile's
+// rows lie in [row0, row0 + local_dim). With V = 16 / sizeof(T) = 2^kV
+// rows in a 16-byte vector, the tile's row offset q has 12 bits:
+//
+//   layout A (the first 4 stages): q bits kA..kA + 3 (kA = kV + 4) are
+//     the thread's 16 entries, the thread index the other 8 bits, its lane
+//     the lowest 5 (consecutive words: no bank conflicts);
+//   layout B (the last 8 stages and the store): q bits 0..kV-1 are the
+//     rows of a vector, kV..kV+4 the lane, kV+5..kV+7 the warp, the rest
+//     the thread's vectors; the registers take q bits 0..kV-1 and
+//     kV+8..11, the shuffles the lane bits kV..kV+3, and layout A took
+//     kV+4 (the lane's top bit) and the warp's three.
+//
+// A stage adds and subtracts the pair of entries whose q differs in one
+// bit; the stages commute, so each bit is taken once where it is local.
+template <typename T, int P>
+__global__ void __launch_bounds__(kDiagThreads, sizeof(T) == 4 ? 6 : 1)
+xor_diagonal_kernel(const XorArgs a) {
+  constexpr int kTile = 1 << kDiagTileBits;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kV = V == 4 ? 2 : 1;
+  constexpr int kA = kV + 4;
+  constexpr int kE = kDiagEntries;
+  static_assert(kE == 16 && kDiagThreads == 256 && kDiagTileBits == 12,
+                "the layouts below assume 16 entries of 256 threads");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* g = reinterpret_cast<T*>(smem);  // [P][kTile], then v
+  const uint32_t tid = threadIdx.x;
+  const int64_t base =
+      (a.row0 + (static_cast<int64_t>(blockIdx.x) << kDiagTileBits)) &
+      ~static_cast<int64_t>(kTile - 1);
+  const uint64_t k_hi = static_cast<uint64_t>(base);
+
+  // (a) g. All threads take the terms' signs, term i by thread i mod 256:
+  // c_t (-1)^parity(k_hi & s_hi) into the shared buffer v, kDiagChunk terms
+  // at a time. Then the owner of slot j (thread j mod 256) adds the slot's
+  // terms in their order to g[s_lo of slot j]; every other entry stays 0.
+  T* v = g + P * kTile;  // [P][kDiagChunk]
+  for (int i = tid; i < P * kTile / V; i += kDiagThreads) {
+    reinterpret_cast<int4*>(g)[i] = make_int4(0, 0, 0, 0);
+  }
+  const T* term_cr = static_cast<const T*>(a.term_cr);
+  const T* term_ci = static_cast<const T*>(a.term_ci);
+  const int n_terms = __ldg(a.slot_term_start + a.n_slots);
+  for (int c0 = 0; c0 < n_terms; c0 += kDiagChunk) {
+    const int c1 = min(n_terms, c0 + kDiagChunk);
+#pragma unroll 4
+    for (int i = c0 + static_cast<int>(tid); i < c1; i += kDiagThreads) {
+      const bool odd =
+          __popcll(k_hi & static_cast<uint64_t>(__ldg(a.term_shi + i))) & 1;
+      const T c_r = __ldg(term_cr + i);
+      v[i - c0] = odd ? -c_r : c_r;
+      if constexpr (P == 2) {
+        const T c_i = __ldg(term_ci + i);
+        v[kDiagChunk + i - c0] = odd ? -c_i : c_i;
+      }
+    }
+    __syncthreads();
+    for (int j = tid; j < a.n_slots; j += kDiagThreads) {
+      const int begin = max(__ldg(a.slot_term_start + j), c0);
+      const int end = min(__ldg(a.slot_term_start + j + 1), c1);
+      if (begin >= end) continue;
+      const uint32_t u = static_cast<uint32_t>(__ldg(a.slot_slo + j));
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        T sum = g[p * kTile + u];
+        for (int i = begin; i < end; ++i) sum += v[p * kDiagChunk + i - c0];
+        g[p * kTile + u] = sum;
+      }
+    }
+    __syncthreads();  // v is overwritten next, g read next
+  }
+  // (b) layout A: entry e of the thread is q = qa | e << kA; the stages on
+  // q bits kA..kA + 3 in registers, then to layout B through shared memory
+  const uint32_t qa = (tid & ((1u << kA) - 1)) | ((tid >> kA) << (kA + 4));
+  T f[P][kE];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      f[p][e] = g[p * kTile + (qa | (static_cast<uint32_t>(e) << kA))];
+    }
+    walsh<T, kE>(f[p]);
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      g[p * kTile + (qa | (static_cast<uint32_t>(e) << kA))] = f[p][e];
+    }
+  }
+  __syncthreads();
+  const uint32_t lane = tid & 31;
+  const uint32_t qb = ((tid >> 5) << (kV + 5)) | (lane << kV);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    // entry e = w * V + r of the thread is q = qb | w << (kV + 8) | r
+#pragma unroll
+    for (int w = 0; w < kE / V; ++w) {
+      T r[V];
+      load_shared<T, V>(
+          g + p * kTile + (qb | (static_cast<uint32_t>(w) << (kV + 8))), r);
+#pragma unroll
+      for (int i = 0; i < V; ++i) f[p][w * V + i] = r[i];
+    }
+    walsh<T, kE>(f[p]);  // q bits 0..kV-1 and kV+8..11
+#pragma unroll
+    for (int h = 1; h < 16; h <<= 1) {  // q bits kV..kV+3: lane bits 0..3
+      // the lower lane of a pair takes a + b, the upper a - b: other + f
+      // or other - f, one exact fused step
+      const T sign = (lane & h) ? T(-1) : T(1);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const T other = __shfl_xor_sync(0xffffffffu, f[p][e], h);
+        f[p][e] = fma(sign, f[p][e], other);
+      }
+    }
+  }
+
+  // (c) the rows of [row0, row0 + local_dim) among the tile's
+  T* d = static_cast<T*>(a.y);
+#pragma unroll
+  for (int w = 0; w < kE / V; ++w) {
+    const int64_t j =
+        base + (qb | (static_cast<uint32_t>(w) << (kV + 8))) - a.row0;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      T* out = d + p * a.local_dim;
+      T r[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) r[i] = f[p][w * V + i];
+      if (a.local_dim >= V) {
+        if (j >= 0 && j < a.local_dim) store<T, V>(out + j, r);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          if (j + i >= 0 && j + i < a.local_dim) out[j + i] = r[i];
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int P>
+int launch_diagonal_as(const XorArgs& a, cudaStream_t stream) {
+  const size_t smem = P * ((size_t(1) << kDiagTileBits) + kDiagChunk) *
+                      sizeof(T);
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(xor_diagonal_kernel<T, P>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long blocks =
+      std::max<int64_t>(1, a.local_dim >> kDiagTileBits);
+  xor_diagonal_kernel<T, P><<<static_cast<unsigned int>(blocks),
+                              kDiagThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_diagonal(const XorArgs* a, void* stream) {
+  const int64_t n = a->local_dim;
+  if (n < 1 || (n & (n - 1)) || a->row0 < 0 || a->row0 % n ||
+      a->tile_bits != kDiagTileBits || (n >> kDiagTileBits) >= (1LL << 31) ||
+      a->n_slots < 1 || a->n_slots > (1 << kDiagTileBits) ||
+      !a->slot_slo || !a->slot_term_start || !a->y) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a->diag_planes) {
+    case 1: return launch_diagonal_as<T, 1>(*a, s);
+    case 2: return launch_diagonal_as<T, 2>(*a, s);
     default: break;
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -512,19 +694,19 @@ extern "C" {
 // Plain C entry points (loaded with ctypes). Each launches on the given
 // stream, does not synchronize, and returns cudaGetLastError().
 int xor_apply_f32(const XorArgs* a, void* stream) {
-  return launch<float>(a, false, stream);
+  return launch<float>(a, stream);
 }
 
 int xor_apply_f64(const XorArgs* a, void* stream) {
-  return launch<double>(a, false, stream);
+  return launch<double>(a, stream);
 }
 
 int xor_diagonal_f32(const XorArgs* a, void* stream) {
-  return launch<float>(a, true, stream);
+  return launch_diagonal<float>(a, stream);
 }
 
 int xor_diagonal_f64(const XorArgs* a, void* stream) {
-  return launch<double>(a, true, stream);
+  return launch_diagonal<double>(a, stream);
 }
 
 const char* xor_apply_error_string(int code) {

@@ -21,7 +21,9 @@ one entry per mask group:
 Once the mask-0 group has ``DIAG_PRECOMPUTE_MIN_TERMS`` terms or more (the
 JAX kernel's threshold), it leaves the kernel's group loop: its sum, the
 diagonal d(k), is built once per (dtype, device, layout) by its own kernel
-and read beside x.
+and read beside x. That kernel takes each aligned tile of
+``2**DIAG_TILE_BITS`` rows as a Walsh-Hadamard transform of the tile's
+coefficients by low sign mask (:class:`DiagonalPlan`).
 
 For blocks of 2**local_bits rows, :meth:`XorTables.for_layout` splits each
 m' into ``m_hi = m' >> local_bits``, the source block, and ``m_lo``, the
@@ -56,6 +58,8 @@ VECS = 2  # vectors of R rows per thread (kVecs in the CUDA source)
 MAX_SOURCES = 64  # kMaxSources in the CUDA source
 # the JAX kernel's threshold for the precomputed diagonal (pallas_apply.py)
 DIAG_PRECOMPUTE_MIN_TERMS = 4
+# the diagonal kernel's tile: 2**12 rows (kDiagTileBits in the CUDA source)
+DIAG_TILE_BITS = 12
 # group flags (kComplex, kMixed in the CUDA source)
 COMPLEX = 1
 MIXED = 2
@@ -183,13 +187,68 @@ class TilePlan:
         return self._device_tables[key]
 
 
+class DiagonalPlan:
+    """The diagonal kernel's tables for tiles of ``2**tile_bits`` rows,
+    over the diagonal's terms (sign masks, complex coefficients): the
+    terms in CSR by their sign mask below tile_bits, s_lo, one slot per
+    distinct s_lo, each slot's terms in their order in the diagonal.
+
+    * ``slot_slo[S]`` — the slots' s_lo, ascending;
+    * ``slot_term_start[S + 1]`` — slot j's terms are
+      ``slot_term_start[j]:slot_term_start[j + 1]``;
+    * ``term_shi[T]``, ``term_cr[T]``, ``term_ci[T]`` — each term's sign
+      mask from tile_bits up and its coefficient.
+
+    In the tile whose rows have the high bits k_hi, entry u of
+    g = sum over the terms of the slot of u of c_t (-1)^parity(k_hi &
+    s_hi) (0 where no slot has u), and the tile's diagonal is the
+    Walsh-Hadamard transform of g: d(k_hi + q) = sum_u g[u]
+    (-1)^parity(q & u).
+    """
+
+    def __init__(self, signs, coeffs, tile_bits):
+        signs = np.asarray(signs, dtype=np.int64)
+        coeffs = np.asarray(coeffs, dtype=np.complex128)
+        lo = (1 << tile_bits) - 1
+        s_lo = signs & lo
+        order = np.argsort(s_lo, kind='stable')
+        slo, counts = np.unique(s_lo, return_counts=True)
+        self.tile_bits = tile_bits
+        self.slot_slo = slo.astype(np.int32)
+        self.slot_term_start = np.concatenate(
+            [[0], np.cumsum(counts)]).astype(np.int32)
+        self.term_shi = signs[order] & ~np.int64(lo)
+        self.term_cr = coeffs.real[order].copy()
+        self.term_ci = coeffs.imag[order].copy()
+        self._device_tables = {}
+
+    @property
+    def n_slots(self):
+        return len(self.slot_slo)
+
+    def on(self, device, dtype):
+        """The tables as tensors on ``device`` (coefficients in ``dtype``),
+        built once and cached."""
+        key = (device, dtype)
+        if key not in self._device_tables:
+            tables = {name: torch.as_tensor(getattr(self, name),
+                                            device=device)
+                      for name in ('slot_slo', 'slot_term_start',
+                                   'term_shi')}
+            for name in ('term_cr', 'term_ci'):
+                tables[name] = torch.as_tensor(getattr(self, name),
+                                               device=device).to(dtype)
+            self._device_tables[key] = tables
+        return self._device_tables[key]
+
+
 class XorTables:
     """The CSR group/term tables of one XOR-mode plan, and the kernel's
     split of them: the diagonal (``use_diag``: the mask-0 group's
     ``diag_s``, ``diag_c``) and the groups of its loop (``kernel_groups``).
 
     The host (numpy) arrays drive the plain versions; :meth:`tiles` and
-    :meth:`diag_tiles` give the kernels' tables for one tile shape.
+    :meth:`diag_plan` give the kernels' tables for one tile shape.
     """
 
     def __init__(self, plan, left):
@@ -251,12 +310,12 @@ class XorTables:
                  for s in sl], tile_bits, rows_per_thread)
         return self._tiles[key]
 
-    def diag_tiles(self, tile_bits, rows_per_thread):
-        """The :class:`TilePlan` of the diagonal, one group (cached)."""
-        key = ('diag', tile_bits, rows_per_thread)
+    def diag_plan(self, tile_bits=DIAG_TILE_BITS):
+        """The :class:`DiagonalPlan` of the diagonal (cached)."""
+        key = ('diag', tile_bits)
         if key not in self._tiles:
-            self._tiles[key] = TilePlan([(self.diag_s, self.diag_c)],
-                                        tile_bits, rows_per_thread)
+            self._tiles[key] = DiagonalPlan(self.diag_s, self.diag_c,
+                                            tile_bits)
         return self._tiles[key]
 
     def smem_bytes(self, itemsize, local_bits=None):
@@ -534,13 +593,39 @@ def _diagonal(tables, row0, dtype, device):
     return cache[key]
 
 
+def _diagonal_args(tables, row0, d):
+    """The XorArgs of the diagonal kernel's launch on rows [row0, row0 +
+    local_dim) of a :class:`ShardedXorTables`, writing the (planes,
+    local_dim) tensor d: the tables of :meth:`XorTables.diag_plan` on d's
+    device, in d's dtype."""
+    t = tables.tables
+    if row0 % tables.local_dim or not 0 <= row0 < t.dim:
+        raise ValueError(f'xor_diagonal: row offset {row0} is not a block '
+                         'start')
+    plan = t.diag_plan()
+    on = plan.on(d.device, d.dtype)
+    a = _XorArgs()
+    a.tile_bits = plan.tile_bits
+    a.local_dim = tables.local_dim
+    a.row0 = int(row0)
+    a.n_slots = plan.n_slots
+    for name, tensor in on.items():
+        setattr(a, name, tensor.data_ptr())
+    a.y = d.data_ptr()
+    a.diag_planes = d.shape[0]
+    return a
+
+
 def xor_diagonal(tables, row0, dtype, device):
     """Rows [row0, row0 + local_dim) of the diagonal d(k) of a
     :class:`ShardedXorTables` whose ``use_diag`` is set, as
     :func:`xor_diagonal_reference` gives them.
 
-    On a CUDA device it launches the diagonal kernel and counts one launch
-    in ``xor_diagonal.launches``; on the CPU it runs the plain version."""
+    On a CUDA device it launches the diagonal kernel (a Walsh-Hadamard
+    transform per tile of ``2**DIAG_TILE_BITS`` rows, over the tables of
+    :meth:`XorTables.diag_plan`; a block of fewer rows takes its rows of
+    the tile that holds it) and counts one launch in
+    ``xor_diagonal.launches``; on the CPU it runs the plain version."""
     t = tables.tables
     if not t.use_diag:
         raise ValueError('xor_diagonal: the operator has no diagonal stream')
@@ -550,15 +635,8 @@ def xor_diagonal(tables, row0, dtype, device):
     d = torch.empty((2 if t.has_imag_diag else 1, tables.local_dim),
                     dtype=dtype, device=device)
     _check_card(d, 'xor_diagonal')
-    plan = t.diag_tiles(*tile_shape(tables.local_bits, d.element_size()))
-    if plan.smem_bytes(d.element_size()) > _MAX_SMEM:
-        raise NotImplementedError(f'xor_diagonal: {len(t.diag_s)} terms '
-                                  'exceed the shared-memory tables')
-    a = _args(plan, tables, row0, dtype, device)
-    a.y = d.data_ptr()
-    a.diag_planes = d.shape[0]
     _run('xor_diagonal_f32' if dtype == torch.float32 else 'xor_diagonal_f64',
-         a, device, 'xor_diagonal')
+         _diagonal_args(tables, row0, d), device, 'xor_diagonal')
     xor_diagonal.launches += 1
     return d
 

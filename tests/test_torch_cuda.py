@@ -272,6 +272,108 @@ def test_diagonal_builds_once_per_layout(card):
         assert float((d - want).abs().max() / want.abs().max()) <= tol
 
 
+def _diag_tables(model, space, L):
+    """The XorTables of a diagonal case (as in test_torch_xor_tiles.py):
+    localized, long_range, four_diag (the XX chain plus exactly the 4 ZZ
+    terms that make a stream), random_complex_diag (localized's diagonal
+    terms with random complex coefficients put into the tables: two
+    planes; a Hermitian operator's are real) and folded_localized
+    ((localized(L) - 0.3)^2, as eigsolve(target_method='fold') builds it),
+    on Full, Parity or XParity(Full)."""
+    from dynamite_tpu_torch import computations
+    from dynamite_tpu_torch.operators import Operator, sigmaz
+    if model == 'folded_localized':
+        H = Operator.from_msc(computations._folded_msc(models.localized(L),
+                                                       0.3))
+    elif model == 'four_diag':
+        H = (models.xx(L) + 0.5 * sigmaz(0) * sigmaz(1)
+             - 0.25 * sigmaz(1) * sigmaz(2) + 0.75 * sigmaz(0) * sigmaz(9)
+             + 0.125 * sigmaz(4) * sigmaz(10))
+    elif model == 'long_range':
+        H = models.long_range(L)
+    else:
+        H = models.localized(L)
+    H.allow_projection = True
+    if space.startswith('xparity'):
+        sub = subspaces.XParity(subspaces.Full(L=L), space[-1])
+    else:
+        sub = _sub(space, L=L)
+    H.add_subspace(sub)
+    tables = H.get_mat().tables
+    assert tables.use_diag
+    if model == 'four_diag':
+        assert len(tables.diag_s) == 4
+    if model == 'random_complex_diag':
+        rng = np.random.RandomState(8)
+        tables.diag_c = rng.uniform(-1, 1, (len(tables.diag_s), 2)) @ [1, 1j]
+        tables.has_imag_diag = True
+    return tables
+
+
+def _diagonal_on_shards(tables, dtype, card, worlds):
+    """The diagonal kernel on P shards for each P in worlds: every block's
+    stream against its plain version, and the shards put together bitwise
+    equal to the one-device stream (each block takes its rows of the same
+    aligned tiles, whatever its size); one launch per block."""
+    from dynamite_tpu_torch.ops.xor_apply import (xor_diagonal,
+                                                  xor_diagonal_reference)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    whole = xor_diagonal(tables.for_layout(tables.nbits), 0, dtype, card)
+    planes = 2 if tables.has_imag_diag else 1
+    assert whole.shape == (planes, tables.dim)
+    for P in worlds:
+        st = tables.for_layout(tables.nbits - (P.bit_length() - 1))
+        n = st.local_dim
+        before = xor_diagonal.launches
+        parts = []
+        for me in range(P):
+            d = xor_diagonal(st, me * n, dtype, card)
+            want = xor_diagonal_reference(st, me * n, dtype, card)
+            assert d.shape == want.shape == (planes, n)
+            assert float((d - want).abs().max()) <= tol * float(
+                want.abs().max())
+            parts.append(d)
+        torch.cuda.synchronize()
+        assert xor_diagonal.launches == before + P
+        assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
+@pytest.mark.parametrize('space', ['full', 'even', 'odd', 'xparity_+',
+                                   'xparity_-'])
+@pytest.mark.parametrize('model', ['localized', 'long_range', 'four_diag',
+                                   'random_complex_diag', 'folded_localized'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_diagonal_kernel_vs_plain_on_card(card, dtype, model, space):
+    """The diagonal kernel (a Walsh-Hadamard transform per tile of 2**12
+    rows) at L=15 (L=12 folded; XParity halves the rows) against its plain
+    version, on 1, 2, 4 and 8 shards: every row offset, blocks of 2**11
+    rows down to 2**8 (smaller than a tile)."""
+    L = 12 if model == 'folded_localized' else 15
+    tables = _diag_tables(model, space, L)
+    _diagonal_on_shards(tables, dtype, card, (1, 2, 4, 8))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_diagonal_blocks_smaller_than_a_vector_on_card(card, dtype):
+    """long_range(5) (32 rows, one tile holds them all) on 1 to 32 shards:
+    blocks of 32 rows down to 1 row, fewer than the 16 bytes of a store."""
+    _diagonal_on_shards(_diag_tables('long_range', 'full', 5), dtype, card,
+                        (1, 4, 16, 32))
+
+
+def test_diagonal_of_the_folded_l24_on_card(card):
+    """The folded localized(24) of eigsolve(target_method='fold'): 1,016
+    diagonal terms on Full(24), float32, against its plain version."""
+    from dynamite_tpu_torch.ops.xor_apply import (xor_diagonal,
+                                                  xor_diagonal_reference)
+    tables = _diag_tables('folded_localized', 'full', 24)
+    assert len(tables.diag_s) == 1016
+    st = tables.for_layout(tables.nbits)
+    d = xor_diagonal(st, 0, torch.float32, card)
+    want = xor_diagonal_reference(st, 0, torch.float32, card)
+    assert float((d - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 @pytest.mark.parametrize('sector', ['+', '-'])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('parent', ['full', 'even'])

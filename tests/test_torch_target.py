@@ -30,6 +30,7 @@ from dynamite_tpu import config as ref_config
 from dynamite_tpu import models as ref_models
 from dynamite_tpu import subspaces as ref_subspaces
 from dynamite_tpu.ops import msc as ref_msc
+from dynamite_tpu.parallel.mesh import make_mesh
 from dynamite_tpu.solvers import eigs as ref_eigs
 from dynamite_tpu.states import State as RefState
 
@@ -59,7 +60,15 @@ def same_start(monkeypatch):
     """Fresh configs, the port on the CPU, numpy's BLAS at one thread, and
     both packages' Lanczos start vectors (the first and the injected ones
     of the verification cycles) drawn from the same numpy seeds (the
-    reference's padded to its storage length and put on its mesh)."""
+    reference's padded to its storage length and put on its mesh).
+
+    The reference solves on a mesh of one device: on the 8-device virtual
+    mesh its applies run XLA CPU collectives, which abort the process when
+    CPU load makes a device thread miss their rendezvous timeout (ROADMAP.md
+    queue 3), as the fold case did in a full run of the suite on 6 workers.
+    Every global the fixture sets (the port's device and precision, both
+    packages' L, subspace and the reference's mesh) is restored after the
+    test."""
     def ref_start(dim, dtype, seed=0, sharding=None, storage_dim=None):
         w = np.zeros((2, storage_dim or dim))
         w[:, :dim] = _numpy_start(dim, seed)
@@ -71,17 +80,20 @@ def same_start(monkeypatch):
         eigs, 'random_start',
         lambda dim, dtype, device, seed=0:
         torch.tensor(_numpy_start(dim, seed), dtype=dtype, device=device))
-    saved_device = config._device
+    saved = config._device, config._precision, ref_config.mesh
     config.device = 'cpu'
+    ref_config._mesh = make_mesh(mesh_shape=(1,))
     for cfg in (ref_config, config):
         cfg._L = None
         cfg._subspace = None
-    with threadpool_limits(limits=1, user_api='blas'):
-        yield
-    for cfg in (ref_config, config):
-        cfg._L = None
-        cfg._subspace = None
-    config._device = saved_device
+    try:
+        with threadpool_limits(limits=1, user_api='blas'):
+            yield
+    finally:
+        for cfg in (ref_config, config):
+            cfg._L = None
+            cfg._subspace = None
+        config._device, config._precision, ref_config._mesh = saved
 
 
 def _sub(pkg, space, L=L):

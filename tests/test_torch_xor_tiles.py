@@ -1,18 +1,22 @@
 """
-The host tables of the port's XOR kernel (``ops/xor_apply.py``): the
-diagonal stream, the slots with their per-tile coefficients and the R-row
-sign classes, held against the JAX package.
+The host tables of the port's XOR kernels (``ops/xor_apply.py``): the
+diagonal stream's, and the matvec's slots with their per-tile coefficients
+and the R-row sign classes, held against the JAX package.
 
-The CUDA kernel cannot run here, so :func:`tile_apply` below computes y the
-way the kernel does, from the kernel's own tables: per tile, each slot's
-coefficient from the tile's global high bits; per thread of R rows, each
-sign class's sum from the thread's row offset; the R row factors by the
+The CUDA kernels cannot run here, so :func:`tile_apply` below computes y the
+way the matvec kernel does, from the kernel's own tables: per tile, each
+slot's coefficient from the tile's global high bits; per thread of R rows,
+each sign class's sum from the thread's row offset; the R row factors by the
 Walsh-Hadamard butterfly; plus the diagonal stream times x. Its output,
 shard by shard at P = 1, 2, 4 and 8 and with the tile bits forced small (so
 that a block holds several tiles and sign masks straddle the split), is held
 against the port's plain version and against the JAX package's Pallas kernel
-in interpret mode; the diagonal against the JAX package's
-``compute_diagonal`` and ``PallasXorPlan``.
+in interpret mode. :func:`fwht_diagonal` computes the diagonal stream the
+way the diagonal kernel does: per tile, the coefficients g by low sign mask
+from the tile's high bits, then a butterfly Walsh-Hadamard transform; it is
+held against the port's plain version and the JAX package's
+``compute_diagonal`` and ``PallasXorPlan``, on Full, Parity and XParity,
+over 1 to 8 shards, at the kernel's tile and at tiles forced small.
 
 Inputs are numpy-seeded planes. Tolerances, as max|dy| / max|y|: 1e-12 in
 float64 and 1e-5 in float32 (the kernel's sums run in another order).
@@ -32,13 +36,15 @@ from dynamite_tpu import subspaces as ref_subspaces
 from dynamite_tpu.ops.pallas_apply import (PallasXorPlan, build_pallas_apply,
                                            compute_diagonal)
 
+from dynamite_tpu_torch import computations
 from dynamite_tpu_torch import config
 from dynamite_tpu_torch import models
 from dynamite_tpu_torch import subspaces
 from dynamite_tpu_torch.operators import Operator
 from dynamite_tpu_torch.ops import xor_apply as port_xor
 from dynamite_tpu_torch.ops.xor_apply import (
-    COMPLEX, MIXED, tile_shape, xor_apply_reference, xor_apply_sharded,
+    COMPLEX, DIAG_PRECOMPUTE_MIN_TERMS, DIAG_TILE_BITS, MIXED, DiagonalPlan,
+    tile_shape, xor_apply_reference, xor_apply_sharded,
     xor_apply_sharded_reference, xor_diagonal)
 from dynamite_tpu_torch.utils.bitwise import parity
 
@@ -54,6 +60,17 @@ TOL = {np.float32: 1e-5, np.float64: 1e-12}
 # (tile_bits, rows per thread) forced small: blocks of 2**7 rows and up hold
 # several tiles
 SMALL_TILES = [(4, 4), (3, 2), (2, 1)]
+# the diagonal kernel's tile bits, and forced small: the shards of 2**7
+# rows and up hold several tiles, and every shard is smaller than the
+# kernel's tile of 2**12 rows
+DIAG_TILES = [DIAG_TILE_BITS, 4, 1]
+# the diagonal's cases: localized (the main path's), long_range (~50 terms),
+# exactly the threshold's 4 terms, complex coefficients (two planes; see
+# _diag_case), and (localized(8) - 0.3)^2 as eigsolve(target_method='fold')
+# builds it
+DIAG_MODELS = ['localized', 'long_range', 'four_diag', 'random_complex_diag',
+               'folded_localized']
+DIAG_SPACES = SPACES + ['xparity_plus', 'xparity_minus']
 
 
 @pytest.fixture(autouse=True)
@@ -89,11 +106,28 @@ def _random_msc(n_diag, seed):
     return out
 
 
+def _diag_msc(model):
+    """four_diag: the XX chain of L sites plus exactly
+    DIAG_PRECOMPUTE_MIN_TERMS ZZ strings (of even weight: they keep the
+    XParity sectors); folded_localized: (localized(8) - 0.3)^2."""
+    if model == 'folded_localized':
+        return computations._folded_msc(models.localized(8), 0.3)
+    xx = models.xx(L).msc
+    n = DIAG_PRECOMPUTE_MIN_TERMS
+    out = np.zeros(len(xx) + n, dtype=xx.dtype)
+    out[:len(xx)] = xx
+    out['signs'][len(xx):] = [3, 6, (1 << 9) | 1, (1 << 10) | (1 << 4)]
+    out['coeffs'][len(xx):] = [0.5, -0.25, 0.75, 0.125]
+    return out
+
+
 def _operator(pkg, model):
     if model == 'random':
         msc = _random_msc(6, seed=5)
     elif model == 'random_few_diag':
         msc = _random_msc(3, seed=6)
+    elif model in ('four_diag', 'folded_localized'):
+        msc = _diag_msc(model)
     else:
         return getattr(pkg.models, model)(L)
     if pkg is ref_pkg:
@@ -113,13 +147,20 @@ class port_pkg:
 
 def _pair(model, space):
     """The same operator and subspace in both packages (projection allowed:
-    ising's X field leaves the Parity sectors)."""
+    ising's X field leaves the Parity sectors, Z fields the XParity
+    ones)."""
     out = []
     for pkg in (ref_pkg, port_pkg):
         H = _operator(pkg, model)
         H.allow_projection = True
-        sub = (pkg.subspaces.Full(L=L) if space == 'full'
-               else pkg.subspaces.Parity(space, L=L))
+        n = 8 if model == 'folded_localized' else L
+        if space in ('full', 'even', 'odd'):
+            sub = (pkg.subspaces.Full(L=n) if space == 'full'
+                   else pkg.subspaces.Parity(space, L=n))
+        else:
+            sub = pkg.subspaces.XParity(pkg.subspaces.Full(L=n),
+                                        '+' if space == 'xparity_plus'
+                                        else '-')
         H.add_subspace(sub)
         out += [H, sub]
     return out
@@ -174,11 +215,34 @@ def _slot_coefficients(plan, g, k_hi):
     return np.asarray(out)
 
 
-def tile_diagonal(layout, row0, tile_bits, R, dtype):
-    """The diagonal stream rows of a block, from the diagonal's slots."""
-    ctype = np.complex64 if dtype == np.float32 else np.complex128
-    k = row0 + np.arange(layout.local_dim, dtype=np.int64)
-    return _factors(layout.tables.diag_tiles(tile_bits, R), 0, k, ctype)
+def fwht_diagonal(layout, row0, tile_bits, dtype):
+    """Rows [row0, row0 + local_dim) of the diagonal stream as the diagonal
+    kernel computes them, in ``dtype``, as complex values: for each aligned
+    tile of 2**tile_bits rows that holds rows of the block, g[u] summed
+    over the terms of the slot of u in their order, each signed by the
+    tile's high bits (0 where no slot has u); then the butterfly over each
+    bit of the row offset (the lower row of a pair takes a + b, the upper
+    a - b); then the block's rows of those tiles."""
+    plan = layout.tables.diag_plan(tile_bits)
+    tile = 1 << tile_bits
+    n = layout.local_dim
+    k_hi = np.arange(row0 & ~(tile - 1), row0 + n, tile, dtype=np.int64)
+    planes = 2 if layout.tables.has_imag_diag else 1
+    g = np.zeros((planes, len(k_hi), tile), dtype)
+    s_lo = np.repeat(plan.slot_slo, np.diff(plan.slot_term_start))
+    for i, u in enumerate(s_lo):  # each slot's terms in their order
+        w = (1 - 2 * parity(k_hi & plan.term_shi[i])).astype(dtype)
+        g[0, :, u] += w * dtype(plan.term_cr[i])
+        if planes == 2:
+            g[1, :, u] += w * dtype(plan.term_ci[i])
+    h = 1
+    while h < tile:
+        pairs = g.reshape(planes, len(k_hi), -1, 2, h)
+        a, b = pairs[:, :, :, 0], pairs[:, :, :, 1]
+        g = np.stack([a + b, a - b], axis=3).reshape(g.shape)
+        h *= 2
+    rows = g.reshape(planes, -1)[:, row0 - k_hi[0]:row0 - k_hi[0] + n]
+    return rows[0] + (1j * rows[1] if planes == 2 else 0)
 
 
 def tile_apply(srcs, layout, row0, tile_bits, R):
@@ -194,7 +258,7 @@ def tile_apply(srcs, layout, row0, tile_bits, R):
     xs = [(s[0] + 1j * s[1]).astype(ctype) for s in srcs]
     y = np.zeros(n, ctype)
     if t.use_diag:
-        y += tile_diagonal(layout, row0, tile_bits, R, dtype) \
+        y += fwht_diagonal(layout, row0, tile_bits, dtype) \
             * xs[layout.diag_src]
     for g, full_g in enumerate(t.kernel_groups):
         f = _factors(plan, g, k, ctype)
@@ -250,7 +314,7 @@ def test_tile_tables_vs_reference(model, space):
     plan = tables.tiles(4, 4)
     shi = [plan.term_shi]
     if tables.use_diag:
-        shi.append(tables.diag_tiles(4, 4).term_shi)
+        shi.append(tables.diag_plan(4).term_shi)
     assert np.concatenate(shi).any()
     for i, g in enumerate(tables.kernel_groups):
         terms = slice(tables.group_start[g], tables.group_start[g + 1])
@@ -316,6 +380,18 @@ def test_diagonal_vs_reference(model, space):
 
     want = np.asarray(compute_diagonal(plan.diag_terms, tables.dim,
                                        np.int32, plan.has_imag_diag))
+    _check_fwht_diagonal(tables, want)
+
+
+def _planes_of(d, planes):
+    return np.stack([d.real, d.imag])[:planes]
+
+
+def _check_fwht_diagonal(tables, want):
+    """The diagonal on P = 1, 2, 4, 8 shards: the plain version (float64)
+    against the JAX package's float32 ``want``, and the kernel's algorithm
+    (:func:`fwht_diagonal`) at each of DIAG_TILES against the plain
+    version, in float64 and in float32."""
     for P in (1, 2, 4, 8):
         st = tables.for_layout(tables.nbits - (P.bit_length() - 1))
         n = st.local_dim
@@ -324,14 +400,80 @@ def test_diagonal_vs_reference(model, space):
             d64 = xor_diagonal(st, me * n, torch.float64, 'cpu').numpy()
             assert d64.shape == rows.shape
             assert _rel(d64, rows) < TOL[np.float32]  # JAX builds in float32
-            d = tile_diagonal(st, me * n, *tile_shape(st.local_bits, 8),
-                              np.float64)
-            d = np.stack([d.real, d.imag])[:rows.shape[0]]
-            assert _rel(d, d64) < TOL[np.float64]
-            for tile_bits, R in SMALL_TILES:
-                d = tile_diagonal(st, me * n, tile_bits, R, np.float32)
-                d = np.stack([d.real, d.imag])[:rows.shape[0]]
-                assert _rel(d, rows) < TOL[np.float32]
+            for tile_bits in DIAG_TILES:
+                for dtype in (np.float64, np.float32):
+                    d = fwht_diagonal(st, me * n, tile_bits, dtype)
+                    assert _rel(_planes_of(d, len(rows)), d64) < TOL[dtype]
+
+
+def _diag_case(model, space):
+    """(the port's XorTables, the JAX package's diagonal terms (cr, ci,
+    s)) of a diagonal case, their terms held equal. A Hermitian operator's
+    diagonal terms are real, so random_complex_diag is localized's
+    diagonal with random complex coefficients put into both packages'
+    terms (the tables' ``diag_c`` and ``has_imag_diag``): the two-plane
+    stream of the kernel and of ``compute_diagonal``."""
+    base = 'localized' if model == 'random_complex_diag' else model
+    H_ref, sub_ref, H, _ = _pair(base, space)
+    tables = H.get_mat().tables
+    plan = PallasXorPlan(H_ref.get_mat().plan, sub_ref, sub_ref)
+    assert tables.use_diag and plan.use_diag and not plan.has_imag_diag
+    want_terms = sorted((s, cr, ci) for cr, ci, s in plan.diag_terms)
+    got_terms = sorted((int(s), c.real, c.imag)
+                       for s, c in zip(tables.diag_s, tables.diag_c))
+    assert got_terms == want_terms
+    if model == 'random_complex_diag':
+        rng = np.random.RandomState(8)
+        tables.diag_c = rng.uniform(-1, 1, (len(tables.diag_s), 2)) @ [1, 1j]
+        tables.has_imag_diag = True
+    return tables, [(c.real, c.imag, int(s))
+                    for s, c in zip(tables.diag_s, tables.diag_c)]
+
+
+@pytest.mark.parametrize('space', DIAG_SPACES)
+@pytest.mark.parametrize('model', DIAG_MODELS)
+def test_fwht_diagonal_vs_reference(model, space):
+    """The diagonal kernel's algorithm on the diagonal's cases, Full,
+    Parity and XParity: the diagonal's terms as the JAX package's plan
+    takes them, and the stream against its ``compute_diagonal`` through
+    :func:`_check_fwht_diagonal`."""
+    tables, terms = _diag_case(model, space)
+    if model == 'four_diag':
+        assert len(tables.diag_s) == DIAG_PRECOMPUTE_MIN_TERMS
+    want = np.asarray(compute_diagonal(terms, tables.dim, np.int32,
+                                       tables.has_imag_diag))
+    assert want.shape[0] == (2 if model == 'random_complex_diag' else 1)
+    _check_fwht_diagonal(tables, want)
+
+
+@pytest.mark.parametrize('tile_bits', [DIAG_TILE_BITS, 4, 0])
+@pytest.mark.parametrize('model', ['long_range', 'folded_localized',
+                                   'random_complex_diag'])
+def test_diagonal_plan_tables(model, tile_bits):
+    """The diagonal kernel's tables: the terms in CSR by s_lo, one slot per
+    distinct s_lo in ascending order, each slot's terms in their order in
+    the diagonal, every term once, its sign mask split at tile_bits and its
+    coefficient kept."""
+    t, _ = _diag_case(model, 'full')
+    plan = t.diag_plan(tile_bits)
+    assert t.diag_plan(tile_bits) is plan
+    assert isinstance(plan, DiagonalPlan) and plan.tile_bits == tile_bits
+    lo = (1 << tile_bits) - 1
+    start, slo = plan.slot_term_start, plan.slot_slo
+    assert start.dtype == slo.dtype == np.int32
+    assert list(slo) == sorted(set(int(s) & lo for s in t.diag_s))
+    assert plan.n_slots == len(slo) and len(start) == len(slo) + 1
+    assert start[0] == 0 and start[-1] == len(t.diag_s)
+    assert np.all(np.diff(start) > 0)
+    order = []
+    for j, u in enumerate(slo):
+        mine = np.flatnonzero((t.diag_s & lo) == u)  # in the diagonal's order
+        got = slice(start[j], start[j + 1])
+        assert np.array_equal(plan.term_shi[got], t.diag_s[mine] & ~lo)
+        assert np.array_equal(plan.term_cr[got] + 1j * plan.term_ci[got],
+                              t.diag_c[mine])
+        order.extend(mine)
+    assert sorted(order) == list(range(len(t.diag_s)))
 
 
 def test_cpu_diagonal_counts_no_launch():
@@ -380,3 +522,28 @@ def test_block_args(model, diag_planes):
     assert bool(a.diag) == bool(diag_planes)
     assert a.n_srcs == 0 and not a.y
     assert ctypes.sizeof(port_xor._XorArgs) == 648
+
+
+@pytest.mark.parametrize('model', ['localized', 'random_complex_diag'])
+def test_diagonal_args(model):
+    """The diagonal kernel's arguments for one block: the tile, the block,
+    its planes and the tables of ``diag_plan`` on the output's device (the
+    matvec's fields left 0), and a row offset off a block start refused."""
+    tables, _ = _diag_case(model, 'full')
+    st = tables.for_layout(7)
+    n = st.local_dim
+    planes = 2 if model == 'random_complex_diag' else 1
+    d = torch.empty((planes, n), dtype=torch.float32)
+    a = port_xor._diagonal_args(st, 3 * n, d)
+    on = tables.diag_plan().on(d.device, d.dtype)
+    assert (a.tile_bits, a.n_slots) == (DIAG_TILE_BITS,
+                                        tables.diag_plan().n_slots)
+    assert (a.local_dim, a.row0, a.diag_planes) == (n, 3 * n, planes)
+    assert a.y == d.data_ptr()
+    assert on['term_cr'].dtype == torch.float32
+    for name in ('slot_slo', 'slot_term_start', 'term_shi', 'term_cr',
+                 'term_ci'):
+        assert getattr(a, name) == on[name].data_ptr()
+    assert not (a.n_groups or a.n_srcs or a.diag or a.class_start)
+    with pytest.raises(ValueError):
+        port_xor._diagonal_args(st, n + 1, d)
