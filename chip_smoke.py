@@ -40,7 +40,8 @@ on the same sector discovered by Auto through the ELL kernel:
    eigsolve(localized(22)) on SpinConserve(22, 11) to 1e-10;
    then float32 at L=24 on Full(24), with the half-chain RDM and entropy
    of its ground state on the card against the host route, and on
-   XParity(Full(24), '+');
+   XParity(Full(24), '+'), one device and over 4 virtual ranks through
+   the kernel's sharded route (see xparity_sharded);
 7. ``sector_solves``: evolve and eigsolve of localized(24) on
    SpinConserve(24, 12), the half-chain entanglement entropy of its ground
    state (the JAX bench's eigsolve_L24 entropy field) and an uneven cut,
@@ -52,7 +53,10 @@ on the same sector discovered by Auto through the ELL kernel:
    Parity(20, 'even') (N = 32 and 40 Majoranas), float32, with times,
    nnz/s, the split, channels, tables, bounds, launches and idle share per
    apply, and cuSPARSE's SpMV of the same matrix; then eigsolve(syk(16))
-   against the JAX package's eigenvalue;
+   against the JAX package's eigenvalue; then ``syk_sharded``: the
+   engine's per-rank apply over 2 and 4 virtual ranks on syk(20) against
+   the one-device engine, and eigsolve(syk(16)) over 4 (see
+   phase_syk_sharded);
 9. ``target``: interior eigenvalues (``eigsolve(target=)``) of
    localized(24) on Full(24), float32, through the XOR kernel: the two
    levels nearest 0.7 lambda_3 + 0.3 lambda_4 by MINRES shift-invert, with
@@ -87,7 +91,10 @@ on the same sector discovered by Auto through the ELL kernel:
 12. ``distributed``: one child process per GPU, on NCCL, runs evolve and
    eigsolve at L=24 on Full(24) through the sharded XOR route (one rank on
    a one-GPU machine: no exchange), with two GPUs or more holds the
-   gathered ``H.dot`` against the one-device route, then eigsolve (with
+   gathered ``H.dot`` against the one-device route and runs the XParity
+   and syk(16) solves, a state file saved from the ranks and loaded on
+   each, and a ``convert_state`` round trip (see distributed_xor_more),
+   then eigsolve (with
    the entropy) and evolve of localized(24) on SpinConserve(24, 12)
    through the alpha ring and through each rank's ELL tables, and over
    two ranks or more SpinConserve(26, 13) through ELL; with three GPUs or
@@ -193,6 +200,11 @@ EVAL0_SYK16 = -254.11831878534292
 EVAL0_SYK_RTOL = 1e-4
 # bench.py's table budget for syk_N40 (its tables take ~9.7 GB)
 SYK_N40_BUDGET = 11 << 30
+# syk_N40 over virtual ranks against the one-device engine, relative to
+# max|y| (float32; the ranks sum each row's channels in other batches)
+SYK_SHARDED_RTOL = 1e-5
+# the XParity(Full(24)) solve over virtual ranks against one device
+XPARITY_SHARDED_TOL = 1e-4
 # the target phase. Float64 (the child): the outer tolerance of each
 # method; fold at its default (1e-6 on the folded operator's scale) comes
 # out 4.1e-10 off eigsh with residuals of 1.7e-4 on this case (the port on
@@ -1327,7 +1339,61 @@ def phase_eigsolve():
     if not (np.isfinite(lam) and resid <= 1e-4):
         raise RuntimeError(f'float32 XParity(Full) eigsolve residual '
                            f'{resid:.3e}')
-    return add_counts(child_launches, launches, xp_launches), child_recs
+    del evecs, v
+    shard_launches, shard_builds = xparity_sharded(H, sub, lam)
+    launches = add_counts(child_launches, launches, xp_launches)
+    return launches, child_recs, shard_launches, shard_builds, lam
+
+
+def xparity_sharded(H, sub, lam_one, P=4):
+    """eigsolve of localized(24) on XParity(Full(24), '+') over P virtual
+    ranks through the XOR route (``VirtualTransport``: the pairwise
+    exchange and one ``xor_apply_sharded`` launch a rank, the sign on the
+    global row), float32, by ``solvers.eigs`` from a numpy-seeded start,
+    the launches counted just around it: λ within XPARITY_SHARDED_TOL of
+    the one-device λ, the layout pad-free (the XOR route's), at least P
+    launches per matvec. Returns the launches and the diagonal builds."""
+    import numpy as np
+    import torch
+    from dynamite_tpu_torch import config
+    from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
+    from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded,
+                                                  xor_diagonal)
+    from dynamite_tpu_torch.parallel import mesh
+    from dynamite_tpu_torch.solvers.eigs import eigsolve_trlanczos
+    dim = sub.get_dimension()
+    k = OperatorKernel(H._msc_on(sub), sub, sub,
+                       transport=VirtualTransport(P))
+    v0 = np.random.RandomState(37).standard_normal((2, dim))
+    stats = {}
+    torch.cuda.synchronize()
+    xor_apply_sharded.launches = 0
+    xor_diagonal.launches = 0
+    t0 = time.perf_counter()
+    evals, _S, _V = eigsolve_trlanczos(k.krylov_ops(20), dim, torch.float32,
+                                       config.device, nev=1, v0=v0,
+                                       stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, builds = xor_apply_sharded.launches, xor_diagonal.launches
+    lam = float(evals[0])
+    rec = {'phase': 'xparity_sharded', 'L': sub.L, 'dim': dim, 'P': P,
+           'engine': k.engine, 'eval0': lam, 'one_device_eval0': lam_one,
+           'abs_err_vs_one_device': abs(lam - lam_one),
+           'pad_free': mesh.storage_dim(dim, P) == dim,
+           'eigsolve_s': seconds, 'matvecs': stats['matvecs'],
+           'restarts': stats['restarts'], 'launches': launches,
+           'diag_builds': builds}
+    emit(rec)
+    if not (k.engine == 'xor' and rec['pad_free']
+            and rec['abs_err_vs_one_device'] <= XPARITY_SHARDED_TOL
+            and launches >= P * stats['matvecs'] > 0):
+        raise RuntimeError(f'XParity(Full(24)) over {P} virtual ranks: '
+                           f'{lam} against {lam_one}, {launches} launches '
+                           f'for {stats["matvecs"]} matvecs')
+    del k
+    torch.cuda.empty_cache()
+    return launches, builds
 
 
 def phase_target(L=24):
@@ -1737,7 +1803,9 @@ def phase_syk():
     if not rel <= EVAL0_SYK_RTOL:
         raise RuntimeError(f'eigsolve syk(16): {lam} against the JAX '
                            f'package\'s {EVAL0_SYK16}')
-    del H, kernel
+    del kernel
+    H.destroy_mat()
+    models = {'syk16': (H, sub)}
     torch.cuda.empty_cache()
 
     saved = getattr(config, 'ell_budget', None)
@@ -1749,14 +1817,127 @@ def phase_syk():
         rec, kernel = xor_dense_record('syk_N40', H, sub, torch.float32)
         rec['model_build_s'] = model_s / 1e3
         recs.append(rec)
+        # the one-device product the ranks' applies are held against
+        x = numpy_planes(sub.get_dimension(), torch.float32, seed=29)
+        models['syk20'] = (H, sub, x, kernel.apply(x), rec['ms'])
     finally:
         if saved is None:
             del config.ell_budget
         else:
             config.ell_budget = saved
-    del H, kernel
+    del kernel
+    H.destroy_mat()
     torch.cuda.empty_cache()
     emit({'phase': 'syk', 'cases': recs[1:]})
+    return recs, solve, models
+
+
+def phase_syk_sharded(models, worlds=(2, 4)):
+    """The XOR-dense engine over P virtual ranks of one card
+    (``VirtualTransport``: each rank's apply on its exchanged source
+    blocks, ``xor_dense_apply_sharded``), float32, at full width:
+    syk(20) on Parity('even', L=20) (N = 40, dim 524,288) under
+    SYK_N40_BUDGET at P = 2 and 4. Per P: the split La and its cap (a
+    rank's bits), the ms of one apply of all ranks (CUDA events, 3
+    warm-up, 20 reps) beside the one-device engine's, the exchanges and
+    bytes per rank and apply, the table bytes (the channel matrices, which
+    the ranks share, and each rank's gathers and signs), and the largest
+    error against the one-device engine's y of phase ``syk`` on the same
+    numpy-seeded x, which must stay within SYK_SHARDED_RTOL of max|y|.
+    Then eigsolve(syk(16)) on Parity('even', L=16) over 4 virtual ranks
+    through ``solvers.eigs`` (a numpy-seeded start), its engine calls
+    counted just around it: λ within EVAL0_SYK_RTOL of the JAX package's,
+    at least 4 calls per matvec. Returns the records and the solve."""
+    import numpy as np
+    import torch
+    from dynamite_tpu_torch import config
+    from dynamite_tpu_torch.ops import apply
+    from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
+    from dynamite_tpu_torch.ops.xor_dense import xor_dense_apply
+    from dynamite_tpu_torch.solvers.eigs import eigsolve_trlanczos
+
+    H, sub, x, y_one, one_ms = models['syk20']
+    dim = sub.get_dimension()
+    nbits = dim.bit_length() - 1
+    scale = float(y_one.abs().max())
+    recs = []
+    saved = getattr(config, 'ell_budget', None)
+    config.ell_budget = SYK_N40_BUDGET
+    try:
+        for P in worlds:
+            k, build_ms = timed(lambda: OperatorKernel(
+                H._msc_on(sub), sub, sub, transport=VirtualTransport(P)))
+            if k.engine != 'xor_dense':
+                raise RuntimeError(f'syk(20) over {P} virtual ranks took '
+                                   f'the {k.engine} route')
+            t = k.xor_dense
+            before = (apply.exchange.exchanges, apply.exchange.bytes)
+            y = k.apply(x)
+            torch.cuda.synchronize()
+            swaps = apply.exchange.exchanges - before[0]
+            sent = apply.exchange.bytes - before[1]
+            err = float((y - y_one).abs().max())
+            ms = cuda_ms(lambda: k.apply(x))
+            rec = {'case': 'syk_N40_virtual_ranks', 'P': P, 'dim': dim,
+                   'La': t.La, 'La_cap': nbits - (P.bit_length() - 1),
+                   'channels': t.channels,
+                   'build_s': build_ms / 1e3,
+                   'ms_all_ranks': ms, 'one_device_ms': one_ms,
+                   'ratio_to_one_device': ms / one_ms,
+                   'exchanges_per_rank_apply': swaps / P,
+                   'exchange_mb_per_rank_apply': sent / P / 1e6,
+                   'shared_table_mb': t.mat_bytes / 1e6,
+                   'rank_own_table_mb': (t.rank_table_bytes(P)
+                                         - t.mat_bytes) / 1e6,
+                   'max_abs_err_vs_one_device': err,
+                   'rel_err_vs_one_device': err / scale,
+                   'finite': bool(torch.isfinite(y).all())}
+            recs.append(rec)
+            del k, t, y
+            torch.cuda.empty_cache()
+            if not (rec['finite']
+                    and rec['rel_err_vs_one_device'] <= SYK_SHARDED_RTOL):
+                emit({'phase': 'syk_sharded', 'cases': recs})
+                raise RuntimeError(f'syk(20) over {P} virtual ranks: '
+                                   f'{err:.3e} from one device')
+    finally:
+        if saved is None:
+            del config.ell_budget
+        else:
+            config.ell_budget = saved
+    del models['syk20'], H, x, y_one
+    torch.cuda.empty_cache()
+
+    H, sub = models.pop('syk16')
+    P = 4
+    k = OperatorKernel(H._msc_on(sub), sub, sub,
+                       transport=VirtualTransport(P))
+    dim = sub.get_dimension()
+    v0 = np.random.RandomState(31).standard_normal((2, dim))
+    stats = {}
+    torch.cuda.synchronize()
+    xor_dense_apply.applies = 0
+    t0 = time.perf_counter()
+    evals, _S, _V = eigsolve_trlanczos(k.krylov_ops(20), dim, torch.float32,
+                                       config.device, nev=1, v0=v0,
+                                       stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    calls = xor_dense_apply.applies
+    lam = float(evals[0])
+    rel = abs(lam - EVAL0_SYK16) / abs(EVAL0_SYK16)
+    solve = {'case': 'eigsolve_syk16_virtual_ranks', 'P': P,
+             'engine': k.engine, 'La': k.xor_dense.La, 'eval0': lam,
+             'jax_eval0': EVAL0_SYK16, 'rel_err_vs_jax': rel,
+             'eigsolve_s': seconds, 'matvecs': stats['matvecs'],
+             'restarts': stats['restarts'], 'xor_dense_calls': calls}
+    emit({'phase': 'syk_sharded', 'cases': recs, 'eigsolve': solve})
+    if not (rel <= EVAL0_SYK_RTOL and calls >= P * stats['matvecs'] > 0):
+        raise RuntimeError(f'eigsolve syk(16) over {P} virtual ranks: '
+                           f'{lam} against {EVAL0_SYK16}, {calls} engine '
+                           f'calls for {stats["matvecs"]} matvecs')
+    del k
+    torch.cuda.empty_cache()
     return recs, solve
 
 
@@ -1817,12 +1998,13 @@ def xor_dense_la_sweep():
         torch.cuda.empty_cache()
 
 
-def distributed_full(rank, world):
+def distributed_full(rank, world, xp_eval0):
     """The Full(24) part of a distributed rank: the gathered evolve at L=14
     against scipy, evolve and eigsolve of localized(24) through the XOR
     route (pairwise exchange and the sharded kernel), their launches and
     exchanges, and with two ranks or more the gathered ``H.dot`` against
-    the one-device kernel. Returns the record's fields."""
+    the one-device kernel and the rest of the XOR route over ranks
+    (:func:`distributed_xor_more`). Returns the record's fields."""
     import numpy as np
     import scipy.sparse.linalg
     import torch.distributed as dist
@@ -1910,7 +2092,144 @@ def distributed_full(rank, world):
             if not diff <= KERNEL_TOL['float32'] * float(y_one.abs().max()):
                 raise RuntimeError(f'gathered H.dot differs from the '
                                    f'one-device route by {diff:.3e}')
+        more = distributed_xor_more(rank, world, v, xp_eval0)
+        out['launches_all_ranks'] += more.pop('xparity_launches_all_ranks')
+        out['diag_builds_all_ranks'] += more.pop('xparity_diag_builds_'
+                                                 'all_ranks')
+        out['xor_more'] = more
     return out
+
+
+def distributed_xor_more(rank, world, v, xp_eval0):
+    """The rest of the XOR route over ranks on NCCL, float32: eigsolve of
+    localized(24) on XParity(Full(24), '+') through the sharded kernel (λ
+    within XPARITY_SHARDED_TOL of the one-device λ ``xp_eval0``, at least
+    one launch a rank per matvec), eigsolve(syk(16)) on Parity('even',
+    L=16) through the XOR-dense engine's per-rank apply (λ within
+    EVAL0_SYK_RTOL of the JAX package's, at least one call a rank per
+    matvec); ``State.save`` of the Full(24) ground state ``v`` from the
+    ranks and ``from_file`` on every rank (each rank's rows equal to what
+    it saved, bitwise; the file's size and CRC32 those of the gathered
+    vector's bytes, which a save on one process writes), the file in a
+    git-ignored directory of the checkout, removed after; and an
+    XParity(Full(24)) ``convert_state`` round trip, each rank's rows
+    bitwise those of the same arithmetic on the gathered vector. Every
+    rank must agree on its counts. Returns the record's fields."""
+    import zlib
+    import numpy as np
+    import torch
+    from dynamite_tpu_torch.computations import eigsolve
+    from dynamite_tpu_torch.models import localized, syk
+    from dynamite_tpu_torch.ops import apply
+    from dynamite_tpu_torch.parallel import mesh, multihost
+    from dynamite_tpu_torch.states import State
+    from dynamite_tpu_torch.subspaces import Full, Parity, XParity
+
+    L = 24
+    H = localized(L)
+    H.allow_projection = True
+    sub = XParity(Full(L=L), '+')
+    H.add_subspace(sub)
+    apply.exchange.exchanges = apply.exchange.bytes = 0
+    evals, xp_counts, xp_stats, xp_s = counted(
+        lambda: eigsolve(H, nev=1), 'distributed eigsolve XParity(Full(24))')
+    xp_lam = float(evals[0])
+    xp_exchange = (apply.exchange.exchanges, apply.exchange.bytes)
+    if not (H.get_mat().engine == 'xor'
+            and abs(xp_lam - xp_eval0) <= XPARITY_SHARDED_TOL):
+        raise RuntimeError(f'distributed XParity(Full(24)): {xp_lam} '
+                           f'against one device\'s {xp_eval0}')
+    del H
+
+    H = syk(16)
+    ssub = Parity('even', L=16)
+    H.add_subspace(ssub)
+    evals, syk_counts, syk_stats, syk_s = counted(
+        lambda: eigsolve(H, nev=1), 'distributed eigsolve syk(16)',
+        engine='xor_dense')
+    syk_lam = float(evals[0])
+    kernel = H.get_mat()
+    syk_rel = abs(syk_lam - EVAL0_SYK16) / abs(EVAL0_SYK16)
+    if not (kernel.engine == 'xor_dense' and syk_rel <= EVAL0_SYK_RTOL):
+        raise RuntimeError(f'distributed syk(16): {syk_lam} against the '
+                           f'JAX package\'s {EVAL0_SYK16}')
+    syk_la = kernel.xor_dense.La
+    del H, kernel
+
+    # the ground state's file, from the ranks
+    tmp = os.path.join(REPO, '.smoke_states')
+    os.makedirs(tmp, exist_ok=True)
+    fname = os.path.join(tmp, 'full24_ground')
+    save_s = time.perf_counter()
+    v.save(fname)
+    save_s = time.perf_counter() - save_s
+    load_s = time.perf_counter()
+    back = State.from_file(fname)
+    load_s = time.perf_counter() - load_s
+    rows_equal = bool(torch.equal(back.data, v.data))
+    gathered = multihost.gather_rows(v.data, to_all=False,
+                                     dim=len(v))
+    file_ok = True
+    if rank == 0:
+        want = gathered.to('cpu', torch.float64).numpy()
+        crc_want = zlib.crc32(want[1].tobytes(),
+                              zlib.crc32(want[0].tobytes()))
+        with open(fname + '.vec', 'rb') as f:
+            crc = 0
+            for block in iter(lambda: f.read(1 << 24), b''):
+                crc = zlib.crc32(block, crc)
+        size = os.path.getsize(fname + '.vec')
+        file_ok = crc == crc_want and size == 2 * len(v) * 8
+    multihost.barrier()
+    if rank == 0:
+        for ext in ('.vec', '.metadata'):
+            os.remove(fname + ext)
+        os.rmdir(tmp)
+
+    # XParity(Full(24)) convert_state: to the sector and back; the same
+    # arithmetic on the gathered vector, row by row
+    xsub = XParity(v.subspace, '+')
+    child = xsub.convert_state(v)
+    parent = xsub.convert_state(child)
+    full = multihost.gather_rows(v.data)
+    half = len(child)
+    flip = (1 << L) - 1
+    idx = torch.arange(len(v), device=full.device)
+    invsq2 = 1.0 / np.sqrt(2)
+    c_all = full[:, :half].clone()
+    c_all.add_(full[:, flip ^ idx[:half]], alpha=1)
+    c_all = c_all * invsq2
+    p_all = torch.cat([c_all, c_all[:, flip ^ idx[half:]]], dim=1) * invsq2
+    convert_ok = (torch.equal(child.data, mesh.local_rows(c_all, half))
+                  and torch.equal(parent.data, mesh.local_rows(p_all,
+                                                               len(v))))
+    checks = np.array([rows_equal, file_ok, convert_ok,
+                       xp_stats['matvecs'], xp_counts['xor_apply'],
+                       xp_counts['xor_diagonal'], syk_stats['matvecs'],
+                       syk_counts['xor_dense_apply']])
+    every = multihost.allgather_host_values(checks)
+    if not (every[:, :3].all() and (every[:, 3:] == every[0, 3:]).all()):
+        raise RuntimeError(f'distributed files, conversion or solves: '
+                           f'{every}')
+    if not (every[0, 4] >= xp_stats['matvecs'] > 0
+            and every[0, 7] >= syk_stats['matvecs'] > 0):
+        raise RuntimeError('a distributed solve did not run its route')
+    return {'xparity_full24': {
+                'eval0': xp_lam, 'one_device_eval0': xp_eval0,
+                'eigsolve_s': xp_s, 'matvecs': xp_stats['matvecs'],
+                'launches': xp_counts['xor_apply'],
+                'exchanges': xp_exchange[0],
+                'exchange_bytes': xp_exchange[1]},
+            'xparity_launches_all_ranks': int(every[:, 4].sum()),
+            'xparity_diag_builds_all_ranks': int(every[:, 5].sum()),
+            'syk16': {'eval0': syk_lam, 'jax_eval0': EVAL0_SYK16,
+                      'rel_err_vs_jax': syk_rel, 'La': syk_la,
+                      'eigsolve_s': syk_s, 'matvecs': syk_stats['matvecs'],
+                      'xor_dense_calls_all_ranks': int(every[:, 7].sum())},
+            'state_file': {'save_s': save_s, 'load_s': load_s,
+                           'bytes': 2 * len(v) * 8, 'rows_equal': True,
+                           'crc_and_size_equal': True},
+            'convert_state_bitwise': True}
 
 
 def distributed_general(rank, world, L=24):
@@ -2076,7 +2395,7 @@ def distributed_general(rank, world, L=24):
     return out
 
 
-def child_distributed(rank, world, port, full=1):
+def child_distributed(rank, world, port, full=1, xp_eval0=None):
     """One rank of the distributed phase: NCCL, one GPU per rank, float32.
     With ``full``, evolve and eigsolve of localized(24) on Full(24) through
     the XOR route (:func:`distributed_full`); then the general pairs
@@ -2099,7 +2418,7 @@ def child_distributed(rank, world, port, full=1):
     out = {'phase': 'distributed', 'backend': dist.get_backend(),
            'world_size': world}
     if full:
-        out.update(distributed_full(rank, world))
+        out.update(distributed_full(rank, world, xp_eval0))
     out['general'] = distributed_general(rank, world)
     if rank == 0:
         emit(out)
@@ -2113,20 +2432,22 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def phase_distributed():
+def phase_distributed(xp_eval0):
     """One child process per GPU (the largest power of two of them), on
-    NCCL (:func:`child_distributed`), and with three GPUs or more a second
-    spawn at world 3 (the padded layout; general pairs only); returns rank
-    0's records."""
+    NCCL (:func:`child_distributed`; ``xp_eval0`` the one-device λ of
+    XParity(Full(24)) that its solve over ranks is held against), and with
+    three GPUs or more a second spawn at world 3 (the padded layout;
+    general pairs only); returns rank 0's records."""
     import torch
     n_gpus = torch.cuda.device_count()
-    recs = [spawn_distributed(1 << (n_gpus.bit_length() - 1), full=1)]
+    recs = [spawn_distributed(1 << (n_gpus.bit_length() - 1), full=1,
+                              xp_eval0=xp_eval0)]
     if n_gpus >= 3:
         recs.append(spawn_distributed(3, full=0))
     return recs
 
 
-def spawn_distributed(world, full):
+def spawn_distributed(world, full, xp_eval0=0.0):
     """Run :func:`child_distributed` on ``world`` ranks; returns rank 0's
     record."""
     import torch
@@ -2138,7 +2459,7 @@ def spawn_distributed(world, full):
         env.setdefault('NCCL_SOCKET_IFNAME', 'lo')
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), CHILD_DIST,
-             str(rank), str(world), str(port), str(full)],
+             str(rank), str(world), str(port), str(full), repr(xp_eval0)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env))
     outs = []
@@ -3024,14 +3345,17 @@ def main():
     # wrapper launches the kernel on both routes, and the phase tells the
     # layout: one block here, one block per rank in the distributed child
     ev_launches = run(phase_evolve)
-    eig_launches, child_recs = run(phase_eigsolve)
+    eig_launches, child_recs, xp_shard_launches, xp_shard_builds, \
+        xp_eval0 = run(phase_eigsolve)
     target_launches, target = run(phase_target)
     diag_rows = run(phase_diagonal, target)
     launches = add_counts(ev_launches, eig_launches, target_launches)
     engines += child_recs['sector_double']['cases']
     run(phase_sector_solves)
-    syk_recs, _syk_solve = run(phase_syk)
+    syk_recs, _syk_solve, syk_models = run(phase_syk)
     engines += syk_recs
+    run(phase_syk_sharded, syk_models)
+    del syk_models
     ell_cases, ell_launches, general_engines, (H_auto, auto) = run(
         phase_general)
     engines += general_engines
@@ -3041,7 +3365,7 @@ def main():
                                     one_tables)
     del H_auto, auto, one_tables
     torch.cuda.empty_cache()
-    dist_recs = run(phase_distributed)
+    dist_recs = run(phase_distributed, xp_eval0)
     dist_rec = dist_recs[0]
     emit({'phase_seconds': seconds,
           'total_s': time.perf_counter() - t_start})
@@ -3053,7 +3377,8 @@ def main():
             shard_launches += gen['routes']['ell']['ell_launches_all_ranks']
             shard_launches += gen['spinconserve_26'].get(
                 'ell_launches_all_ranks', 0)
-    diag_builds = launches['xor_diagonal'] + dist_rec['diag_builds_all_ranks']
+    diag_builds = (launches['xor_diagonal'] + xp_shard_builds
+                   + dist_rec['diag_builds_all_ranks'])
     if not diag_builds > 0:
         raise RuntimeError('the main path built no diagonal stream')
 
@@ -3089,12 +3414,14 @@ def main():
         'library_ms': main_case['library_ms'],
     }, {
         # localized(24), float32, P = 4 virtual shards: the sum of the four
-        # launches; the yardstick is the same SpMV of the whole matrix
+        # launches; the yardstick is the same SpMV of the whole matrix;
+        # launches those of the distributed solves and of the
+        # XParity(Full(24)) solve over 4 virtual ranks
         'name': 'xor_apply_sharded',
         'route': 'cuda',
         'source': 'dynamite_tpu_torch/csrc/xor_apply.cu',
         'replaces': 'dynamite_tpu/ops/pallas_apply.py:309 via :497',
-        'launches': dist_rec['launches_all_ranks'],
+        'launches': dist_rec['launches_all_ranks'] + xp_shard_launches,
         'max_abs_err': max(r['max_abs_err'] for r in sharded_rows),
         'ms': shard_case['ms_sum_of_P'],
         'plain_ms': shard_case['plain_ms_sum_of_P'],
@@ -3164,7 +3491,7 @@ if __name__ == '__main__':
     if sys.argv[1:] == [CHILD_FLAG]:
         child_eigsolve_double()
     elif sys.argv[1:2] == [CHILD_DIST]:
-        child_distributed(*map(int, sys.argv[2:]))
+        child_distributed(*map(int, sys.argv[2:6]), float(sys.argv[6]))
     elif sys.argv[1:] == [GROUP_COSTS]:
         group_costs()
     elif sys.argv[1:] == [SECTOR_FORMS]:

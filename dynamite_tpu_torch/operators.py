@@ -540,13 +540,17 @@ class Operator:
         hold (:meth:`.ops.ell.EllTables.nbytes`).
 
         Over ``mpi_size`` > 1 ranks, a pair off the XOR route counts the
-        general route's tables (:meth:`_sharded_table_bytes`)."""
+        general route's tables (:meth:`_sharded_table_bytes`). On it, the
+        diagonal stream counts each rank's rows, and the XOR-dense engine
+        every rank's tables at the split capped to a rank's block (each
+        rank holds the channel matrices) and its receive buffers, one
+        block per nonzero high mask."""
         from .ops import ell as ell_mod
-        from .ops.apply import _kernel_holds, _Plan, sharded_route
+        from .ops.apply import _Plan, _xor_engine, sharded_route
         from .ops.sector_apply import (TABLE_BUDGET, sector_supported,
                                        table_bytes_estimate)
-        from .ops.xor_apply import XorTables
-        from .ops.xor_dense import choose_split
+        from .ops.xor_apply import hi_list
+        from .parallel import mesh
 
         left, right = self.left_subspace, self.right_subspace
         self.establish_L()
@@ -559,15 +563,19 @@ class Operator:
             if route != 'xor':
                 return self._sharded_table_bytes(plan, route, mpi_size)
         if plan.xor_mode:
-            tables = XorTables(plan, left)
-            if not plan.use_scan or _kernel_holds(tables):
-                if not tables.use_diag:
+            # over ranks only on the XOR route's layout (above)
+            engine, made = _xor_engine(plan, left, right, mpi_size)
+            if engine == 'xor':
+                if not made.use_diag:
                     return 0
-                return plan.dim_left * cb * (2 if tables.has_imag_diag
+                return plan.dim_left * cb * (2 if made.has_imag_diag
                                              else 1)
-            split = choose_split(plan, left, right)
-            if split is not None:
-                return split[3]
+            if engine == 'xor_dense':
+                n = mesh.local_dim(plan.dim_right, mpi_size)
+                his = hi_list([g[1] for g in plan.groups],
+                              n.bit_length() - 1)
+                recv = (len(his) - (0 in his)) * 2 * n * cb
+                return (made[3] + recv) * mpi_size
         elif config.use_sector and sector_supported(plan, left, right):
             est = table_bytes_estimate(plan, left, right)
             if est <= TABLE_BUDGET:

@@ -37,13 +37,16 @@ package's ``_build_sharded_callable`` and ``_build_sharded_general``
 :func:`sharded_route` names them for the kernel and for
 ``Operator.estimate_memory`` alike:
 
-1. XOR pairs on a power-of-two world that divides the dimension: each rank
-   exchanges blocks pairwise with the ranks its masks reach
-   (:func:`exchange`), then runs the kernel's sharded route once. XParity
-   pairs, and ``use_scan`` operators past the kernel's tables, raise (not
-   ported yet: ROADMAP.md queue 1, item 12);
-2. every other pair, XOR pairs on another world included, the general
-   route, which takes the first of:
+1. XOR pairs (Full, Parity, XParity over either) on a power-of-two world
+   that divides the dimension: each rank exchanges blocks pairwise with
+   the ranks its masks reach (:func:`exchange`), then runs the kernel's
+   sharded route once, with the sign on the global row; a ``use_scan``
+   operator past the kernel's tables runs the XOR-dense engine's per-rank
+   apply on the same exchange instead
+   (:func:`.xor_dense.xor_dense_apply_sharded`), while it takes the plan;
+2. every other pair, XOR pairs on another world and many-mask XOR pairs
+   that neither XOR engine takes included, the general route, which takes
+   the first of:
 
    a. ``'sector_ring'``: the sector engine's alpha ring
       (:mod:`.sector_shard`), for the pairs the sector engine takes, while
@@ -80,7 +83,8 @@ from .index_maps import device_map, parity
 from .sector_apply import (build_sector_apply, sector_apply, sector_supported,
                            table_bytes_estimate)
 from .xor_apply import _MAX_SMEM, XorTables, xor_apply_sharded
-from .xor_dense import build_xor_dense, xor_dense_apply, xor_dense_supported
+from .xor_dense import (build_xor_dense, choose_split, xor_dense_apply,
+                        xor_dense_apply_sharded)
 
 # operators with more mask groups than this, or more terms than the next,
 # are ``use_scan`` (the JAX package's ops/apply.py limits): here they may
@@ -240,7 +244,8 @@ general_sweep.applies = 0
 
 def exchange(x_local, tables, bufs):
     """Fill ``bufs[i - 1]`` with the block of rank ``me ^ hi_list[i]``, for
-    every m_hi != 0 of ``tables.hi_list`` (a :class:`ShardedXorTables`), by
+    every m_hi != 0 of ``tables.hi_list`` (a :class:`ShardedXorTables`, or
+    the XOR-dense engine's :class:`.xor_dense.DenseLayout`), by
     one pairwise send/recv per m_hi, all posted in one
     ``dist.batch_isend_irecv`` and waited on. Every rank takes the masks in
     the same sorted order. Returns the source list of the kernel's sharded
@@ -529,27 +534,54 @@ def ring_general_wanted(plan, world):
     return 2 * sdim_right * config.real_dtype.itemsize > RING_GENERAL_BYTES
 
 
+def _xor_engine(plan, left, right, world=1):
+    """The XOR engine of a square XOR-mode plan over ``world`` ranks (a
+    layout the XOR route takes): ('xor', its :class:`XorTables`) while the
+    kernel's shared-memory tables hold it (not ``use_scan``, or tables that
+    fit in float32 and in float64), ('xor_dense', the split of
+    :func:`.xor_dense.choose_split`) where the XOR-dense engine takes it,
+    else (None, None). Decided from global quantities only."""
+    tables = XorTables(plan, left)
+    if not plan.use_scan or _kernel_holds(tables):
+        return 'xor', tables
+    split = choose_split(plan, left, right, world)
+    if split is not None:
+        return 'xor_dense', split
+    return None, None
+
+
+def _sharded_choice(plan, left, right, world):
+    """(route, XOR engine, its tables or split) over ``world`` ranks: see
+    :func:`sharded_route`."""
+    from .. import config
+    if plan.xor_mode and plan.dim_left == plan.dim_right \
+            and mesh.xor_layout(plan.dim_right, world):
+        engine, made = _xor_engine(plan, left, right, world)
+        if engine is not None:
+            return 'xor', engine, made
+    if not plan.groups:
+        return 'zero', None, None
+    if (config.use_sector and sector_supported(plan, left, right)
+            and table_bytes_estimate(plan, left, right) <= ell.ell_budget()):
+        return 'sector_ring', None, None
+    if config.use_ell and ell.table_bytes(
+            plan, mesh.storage_dim(plan.dim_left, world)) <= ell.ell_budget():
+        return 'ell', None, None
+    route = 'sweep_ring' if ring_general_wanted(plan, world) else 'sweep'
+    return route, None, None
+
+
 def sharded_route(plan, left, right, world):
     """The route of a plan over ``world`` ranks, in the JAX package's order
     (``_build_sharded_callable``, ``_build_sharded_general``,
     ``apply.py:598, :649``), from global quantities only: 'xor' for XOR
-    pairs on a power-of-two world that divides the dimension, 'zero' when
-    no term is left, else the general route's 'sector_ring', 'ell',
-    'sweep_ring' or 'sweep'. The kernel and ``estimate_memory`` both take
-    it from here."""
-    from .. import config
-    if plan.xor_mode and plan.dim_left == plan.dim_right \
-            and mesh.xor_layout(plan.dim_right, world):
-        return 'xor'
-    if not plan.groups:
-        return 'zero'
-    if (config.use_sector and sector_supported(plan, left, right)
-            and table_bytes_estimate(plan, left, right) <= ell.ell_budget()):
-        return 'sector_ring'
-    if config.use_ell and ell.table_bytes(
-            plan, mesh.storage_dim(plan.dim_left, world)) <= ell.ell_budget():
-        return 'ell'
-    return 'sweep_ring' if ring_general_wanted(plan, world) else 'sweep'
+    pairs on a power-of-two world that divides the dimension, through the
+    XOR kernel or, for a ``use_scan`` plan past its tables, the XOR-dense
+    engine (:func:`_xor_engine`); 'zero' when no term is left; else the
+    general route's 'sector_ring', 'ell', 'sweep_ring' or 'sweep' (where
+    a many-mask XOR pair goes that neither XOR engine takes). The kernel
+    and ``estimate_memory`` both take it from here."""
+    return _sharded_choice(plan, left, right, world)[0]
 
 
 def _kernel_holds(tables):
@@ -557,11 +589,6 @@ def _kernel_holds(tables):
     float32 and in float64."""
     return all(tables.smem_bytes(itemsize) <= _MAX_SMEM
                for itemsize in (4, 8))
-
-
-def _not_ported(what):
-    return NotImplementedError(f'{what} over ranks is not ported yet '
-                               '(ROADMAP.md queue 1, item 12)')
 
 
 class OperatorKernel:
@@ -589,7 +616,6 @@ class OperatorKernel:
 
     def __init__(self, msc, left, right, transport=None):
         from .. import config
-        from .. import subspaces as sp
 
         self.plan = _Plan(msc, left, right)
         self.left = left
@@ -608,20 +634,17 @@ class OperatorKernel:
             transport = GroupTransport()
         self.transport = transport
 
-        xparity = isinstance(left, sp.XParity) or isinstance(right, sp.XParity)
         if transport is not None:
-            self._build_over_ranks(xparity)
+            self._build_over_ranks()
             return
         if self.plan.xor_mode:
-            tables = XorTables(self.plan, left)
-            if not self.plan.use_scan or _kernel_holds(tables):
-                self.tables = tables
+            engine, made = _xor_engine(self.plan, left, right)
+            if engine == 'xor':
+                self.tables = made
                 return
-            if xor_dense_supported(self.plan):
-                self.xor_dense = build_xor_dense(self.plan, left, right)
-                if self.xor_dense is not None:
-                    self.xor_dense_info = self.xor_dense.info
-                    return
+            if engine == 'xor_dense':
+                self._build_xor_dense(made, (0,), 1)
+                return
         if not self.plan.groups:
             return  # every term projected away, or none to begin with
         if config.use_sector and sector_supported(self.plan, left, right):
@@ -638,40 +661,40 @@ class OperatorKernel:
             self.conserves_hint = self.ell_tables.build_conserving(
                 config.real_dtype, config.device)
 
-    def _build_over_ranks(self, xparity):
+    def _build_over_ranks(self):
         """The route over ranks that :func:`sharded_route` names, built:
-        the XOR route's tables, or the general route's ``sharded``
-        object. XParity over Full/Parity, and ``use_scan`` operators past
-        the XOR kernel's tables on its layout, raise."""
+        the XOR route's tables (the kernel's, or the XOR-dense engine's
+        for every rank the transport runs), or the general route's
+        ``sharded`` object."""
         from .sector_shard import SectorRing
-        plan, world = self.plan, self.transport.world
-        if plan.xor_mode and xparity:
-            raise _not_ported('an XParity operator over Full or Parity')
-        route = sharded_route(plan, self.left, self.right, world)
-        if route == 'xor':
-            tables = XorTables(plan, self.left)
-            if plan.use_scan and not _kernel_holds(tables):
-                raise _not_ported('a use_scan operator past the XOR '
-                                  "kernel's tables (the XOR-dense engine)")
-            self.tables = tables
+        plan, transport = self.plan, self.transport
+        route, engine, made = _sharded_choice(plan, self.left, self.right,
+                                              transport.world)
+        if engine == 'xor':
+            self.tables = made
+        elif engine == 'xor_dense':
+            self._build_xor_dense(made, transport.ranks, transport.world)
         elif route == 'sector_ring':
             self.sharded = SectorRing(plan, self.left, self.right,
-                                      self.transport)
+                                      transport)
             self.sector_plan = self.sharded.sector_plan
             self.conserves_hint = self.sector_plan.conserved
         elif route == 'ell':
-            self.sharded = ShardedEll(plan, self.transport)
+            self.sharded = ShardedEll(plan, transport)
             self.conserves_hint = self.sharded.conserved
         elif route != 'zero':
             self.sharded = {'sweep_ring': SweepRing,
-                            'sweep': SweepGather}[route](plan,
-                                                         self.transport)
+                            'sweep': SweepGather}[route](plan, transport)
+
+    def _build_xor_dense(self, split, ranks, world):
+        self.xor_dense = build_xor_dense(self.plan, split, ranks, world)
+        self.xor_dense_info = self.xor_dense.info
 
     @property
     def engine(self):
         """The route :meth:`apply` takes: 'xor', 'xor_dense', 'sector',
-        'ell', 'sweep', over ranks 'sector_ring', 'ell', 'sweep_ring' or
-        'sweep', or 'zero' (no term left)."""
+        'ell', 'sweep', over ranks 'xor', 'xor_dense', 'sector_ring',
+        'ell', 'sweep_ring' or 'sweep', or 'zero' (no term left)."""
         if self.tables is not None:
             return 'xor'
         if self.sharded is not None:
@@ -688,8 +711,7 @@ class OperatorKernel:
         """This rank's rows of y (every row without a process group; the
         virtual ranks' padded vector with a :class:`VirtualTransport`).
 
-        The sector, XOR-dense, ELL and sweep routes run on one device. Over
-        ranks see :meth:`apply_ranks`."""
+        Over ranks see :meth:`apply_ranks`."""
         x = x.contiguous()
         transport = self.transport
         if transport is None:
@@ -725,32 +747,39 @@ class OperatorKernel:
         ``transport.ranks``.
 
         The XOR route exchanges blocks with the ranks ``me ^ m_hi``, then
-        launches the kernel once a rank; the general routes are their
+        launches the kernel once a rank, or runs the XOR-dense engine's
+        apply once a rank on the same sources; the general routes are their
         ``sharded`` object's. The XOR route's receive buffers,
         ``len(hi_list) - 1`` blocks, are kept per dtype and device between
         calls, so the memory grows with the number of distinct high
         masks."""
         transport = self.transport
+        dim, world = self.plan.dim_right, transport.world
+        local_bits = mesh.local_dim(dim, world).bit_length() - 1
         if self.tables is not None:
-            srcs = transport.pairwise(xs, self._xor_layout(xs[0]),
-                                      self._recv_bufs_for(xs[0]))
-            return self._apply_xor(srcs, transport.ranks, transport.world)
+            layout = self.tables.for_layout(local_bits)
+            srcs = transport.pairwise(xs, layout,
+                                      self._recv_bufs_for(xs[0], layout))
+            return self._apply_xor(srcs, transport.ranks, world)
+        if self.xor_dense is not None:
+            layout = self.xor_dense.layout(local_bits)
+            srcs = transport.pairwise(xs, layout,
+                                      self._recv_bufs_for(xs[0], layout))
+            return [xor_dense_apply_sharded(s, self.xor_dense,
+                                            mesh.row0(dim, r, world))
+                    for s, r in zip(srcs, transport.ranks)]
         if self.sharded is not None:
             return self.sharded.apply(xs)
-        n = mesh.local_dim(self.plan.dim_left, transport.world)
+        n = mesh.local_dim(self.plan.dim_left, world)
         return [x.new_zeros((2, n)) for x in xs]
 
-    def _xor_layout(self, x):
-        world = 1 if self.transport is None else self.transport.world
-        return self.tables.for_layout(
-            self.tables.nbits - mesh.device_bits(self.plan.dim_right, world))
-
-    def _recv_bufs_for(self, x):
-        tables = self._xor_layout(x)
+    def _recv_bufs_for(self, x, layout):
+        """The receive buffers of the pairwise exchange on ``layout`` (its
+        ``hi_list``), one block per m_hi != 0, per dtype and device."""
         key = (x.dtype, x.device)
         if key not in self._recv_bufs:
             self._recv_bufs[key] = torch.empty(
-                (len(tables.hi_list) - (0 in tables.hi_list),) + x.shape,
+                (len(layout.hi_list) - (0 in layout.hi_list),) + x.shape,
                 dtype=x.dtype, device=x.device)
         return self._recv_bufs[key]
 
@@ -759,7 +788,8 @@ class OperatorKernel:
         dim = self.plan.dim_right
         if self.tables.n_groups == 0:
             return [torch.zeros_like(s[0]) for s in srcs]
-        tables = self._xor_layout(srcs[0][0])
+        tables = self.tables.for_layout(
+            self.tables.nbits - mesh.device_bits(dim, world))
         return [xor_apply_sharded(s, tables, mesh.row0(dim, r, world))
                 for s, r in zip(srcs, ranks)]
 

@@ -333,6 +333,13 @@ class XorTables:
         return self._layouts[local_bits]
 
 
+def hi_list(perm_masks, local_bits):
+    """The sorted distinct high masks m_hi = m' >> local_bits of a plan's
+    permutation masks: over blocks of 2**local_bits rows, the block of rank
+    r ^ hi_list[i] is source i of rank r."""
+    return sorted({int(m) >> local_bits for m in perm_masks})
+
+
 class ShardedXorTables:
     """One layout of :class:`XorTables`: the rows split into blocks of
     ``local_dim = 2**local_bits``, block b held by rank b.
@@ -354,7 +361,7 @@ class ShardedXorTables:
         self.local_dim = 1 << local_bits
         m_hi = tables.group_mask >> local_bits
         self.m_lo = tables.group_mask & (self.local_dim - 1)
-        self.hi_list = sorted({int(h) for h in m_hi})
+        self.hi_list = hi_list(tables.group_mask, local_bits)
         self.src_idx = np.searchsorted(self.hi_list, m_hi).astype(np.int32)
         self.diag_src = self.hi_list.index(0) if tables.use_diag else -1
         self._device_tables = {}

@@ -128,6 +128,35 @@ def gather_rows(t, to_all=True, dim=None):
     return t
 
 
+def rows_to_rank0(t, dim, chunk):
+    """Every rank's rows below ``dim`` of its (2, local_dim) tensor ``t``
+    (``parallel.mesh``'s padded layout), brought to rank 0 in pieces of at
+    most ``chunk`` rows: yields (start, piece) in global row order, piece
+    the (2, n) rows [start, start + n) as a host float64 array on rank 0 and
+    None on the other ranks. Every rank walks the same pieces, whose bounds
+    are global; the rank that holds a piece sends it to rank 0 with one
+    point-to-point send, so rank 0 holds one piece at a time and pad rows
+    never leave their rank. Without a process group, the pieces of t."""
+    from . import mesh
+    me, world = rank(), world_size()
+    for q in range(world):
+        first = mesh.row0(dim, q, world)
+        valid = mesh.valid_rows(dim, q, world)
+        for start in range(0, valid, chunk):
+            n = min(chunk, valid - start)
+            piece = None
+            if q == me:
+                piece = t[:, start:start + n]
+                if me != 0:
+                    dist.send(piece.contiguous(), dst=0)
+            elif me == 0:
+                piece = t.new_empty((2, n))
+                dist.recv(piece, src=q)
+            if me == 0:
+                piece = piece.to('cpu', torch.float64).numpy()
+            yield first + start, piece
+
+
 def rank_seed(seed):
     """The generator seed of this rank's rows of a random vector: ``seed``
     itself on rank 0, so one process draws what it drew before a process

@@ -71,13 +71,6 @@ class UninitializedError(RuntimeError):
     pass
 
 
-def _check_one_process(what):
-    if multihost.world_size() > 1:
-        raise NotImplementedError(
-            f'{what} of a state spread over {multihost.world_size()} ranks '
-            'is not ported yet (ROADMAP.md queue 1, item 12)')
-
-
 class State:
     """
     A quantum state vector.
@@ -455,26 +448,39 @@ class State:
     def save(self, fname):
         """Save as ``<fname>.vec`` (raw binary re/im float64 array) plus
         ``<fname>.metadata`` (pickled subspace) — the JAX package's format.
-        The vector is streamed to disk in SAVE_CHUNK-element pieces."""
-        _check_one_process('save')
+        Rank 0 writes both files: the vector is streamed to disk in
+        SAVE_CHUNK-row pieces, each rank's valid rows sent to rank 0 one
+        piece at a time (:func:`.parallel.multihost.rows_to_rank0`), so
+        host memory stays bounded and pad rows never reach the file. The
+        save ends with a barrier, so no rank reads the file before it is
+        written (a collective: every rank calls it)."""
         self.assert_initialized()
         dim = len(self)
-        with open(fname + '.metadata', 'wb') as fm:
-            _dump_subspace(self.subspace, fm)
-        with open(fname + '.vec', 'wb') as f:
-            f.truncate(2 * dim * 8)
-            for start in range(0, dim, self.SAVE_CHUNK):
-                piece = self.data[:, start:start + self.SAVE_CHUNK].to(
-                    'cpu', torch.float64).numpy()
-                f.seek(start * 8)
-                f.write(piece[0].tobytes())
-                f.seek((dim + start) * 8)
-                f.write(piece[1].tobytes())
+        f = None
+        try:
+            if multihost.rank() == 0:
+                with open(fname + '.metadata', 'wb') as fm:
+                    _dump_subspace(self.subspace, fm)
+                f = open(fname + '.vec', 'wb')
+                f.truncate(2 * dim * 8)
+            for start, piece in multihost.rows_to_rank0(self.data, dim,
+                                                        self.SAVE_CHUNK):
+                if f is not None:
+                    f.seek(start * 8)
+                    f.write(piece[0].tobytes())
+                    f.seek((dim + start) * 8)
+                    f.write(piece[1].tobytes())
+        finally:
+            if f is not None:
+                f.close()
+        multihost.barrier()
 
     @classmethod
     def from_file(cls, fname):
-        """Load a state saved with :meth:`save` by either package."""
-        _check_one_process('load')
+        """Load a state saved with :meth:`save` by either package. Each
+        rank checks the file's size itself (so a bad file raises on every
+        rank, with no collective to hang in) and reads only its own rows
+        from the memmap, in SAVE_CHUNK-row pieces; its pad rows are 0."""
         with open(fname + '.metadata', 'rb') as f:
             subspace = _SubspaceUnpickler(f).load()
         dim = subspace.get_dimension()
@@ -483,13 +489,14 @@ class State:
                                'from file')
 
         rtn = cls(subspace=subspace)
-        data = torch.empty((2, dim), dtype=config.real_dtype,
-                           device=config.device)
+        data = rtn._zeros()
+        first, valid = mesh.row0(dim), mesh.valid_rows(dim)
         mm = np.memmap(fname + '.vec', dtype=np.float64, mode='r',
                        shape=(2, dim))
-        for start in range(0, dim, cls.SAVE_CHUNK):
-            piece = np.array(mm[:, start:start + cls.SAVE_CHUNK])
-            data[:, start:start + piece.shape[1]] = torch.from_numpy(piece)
+        for start in range(0, valid, cls.SAVE_CHUNK):
+            stop = min(start + cls.SAVE_CHUNK, valid)
+            piece = np.array(mm[:, first + start:first + stop])
+            data[:, start:stop] = torch.from_numpy(piece)
         del mm
         rtn.data = data
         rtn.set_initialized()

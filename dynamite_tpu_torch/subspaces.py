@@ -568,49 +568,57 @@ class XParity(Subspace):
         """Convert a state on this subspace to its parent, or vice versa,
         on the state's device: the complement of each representative is
         found with the parent's device index map (ops/index_maps.py), and
-        the amplitudes move with one ``index_select`` (to the parent) or
-        one ``index_add_`` (to this subspace)."""
+        the amplitudes move with one ``index_select`` and, to this
+        subspace, one add. Over ranks the input is all-gathered (the
+        complement of a representative lives on another rank) and each
+        rank fills its own rows of the output, by the same ops over their
+        global indices, its pad rows 0: each rank's rows equal those of
+        one process's conversion, bitwise."""
         import torch
         from .states import State
+        from .ops.apply import all_gather_rows
         from .ops.index_maps import device_map
-        from .parallel import multihost
+        from .parallel import mesh, multihost
 
         state.assert_initialized()
-        if multihost.world_size() > 1:
-            raise NotImplementedError(
-                'XParity.convert_state of a state spread over ranks is not '
-                'ported yet (ROADMAP.md queue 1, item 12)')
-        n_in = len(state)
-        flip = (1 << self.L) - 1
-        pmap = device_map(self.parent)
-        data = state.data
-        invsq2 = 1.0 / np.sqrt(2)
-
-        def complement_idx(first, stop):
-            rows = torch.arange(first, stop, dtype=torch.int64,
-                                device=data.device)
-            idx, _ = pmap.s2i(flip ^ pmap.i2s(rows))
-            return idx
-
-        if state.subspace is self:
-            # to the parent: amplitude a on representative c, sector * a on
-            # its complement; the second half of the parent's rows are the
-            # complements of the first
-            pdim = self.parent.get_dimension()
-            comp = data.index_select(1, complement_idx(n_in, pdim))
-            vec = torch.cat([data, self.sector * comp], dim=1)
+        to_parent = state.subspace is self
+        if to_parent:
             out = State(subspace=self.parent)
         elif state.subspace is self.parent:
-            dim_out = n_in // 2
-            to_idx = complement_idx(dim_out, n_in)
-            vec = data[:, :dim_out].clone()
-            vec.index_add_(1, to_idx, data[:, dim_out:],
-                           alpha=self.sector)
             out = State(subspace=self)
         else:
             raise ValueError('subspace of input state must be this XParity '
                              'subspace or its parent')
-        out.data = vec * invsq2
+        data = state.data
+        if multihost.world_size() > 1:
+            data = all_gather_rows(data)
+        n_in, dim_out = len(state), len(out)
+        first, valid = mesh.row0(dim_out), mesh.valid_rows(dim_out)
+        stop = first + valid
+        flip = (1 << self.L) - 1
+        pmap = device_map(self.parent)
+
+        def complement_idx(a, b):
+            rows = torch.arange(a, b, dtype=torch.int64, device=data.device)
+            idx, _ = pmap.s2i(flip ^ pmap.i2s(rows))
+            return idx
+
+        if to_parent:
+            # amplitude a on representative c, sector * a on its
+            # complement; the second half of the parent's rows are the
+            # complements of the first
+            mid = min(max(n_in, first), stop)
+            comp = data.index_select(1, complement_idx(mid, stop))
+            vec = torch.cat([data[:, first:mid], self.sector * comp], dim=1)
+        else:
+            # a representative's amplitude plus sector times its
+            # complement's
+            vec = data[:, first:stop].clone()
+            vec.add_(data.index_select(1, complement_idx(first, stop)),
+                     alpha=self.sector)
+        local = out._zeros()
+        local[:, :valid] = vec * (1.0 / np.sqrt(2))
+        out.data = local
         out.set_initialized()
         return out
 

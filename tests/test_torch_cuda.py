@@ -8,8 +8,10 @@ the MINRES inner solve and eigsolve(target=) against the same calls on the
 CPU, the ELL kernel (``csrc/ell_apply.cu``) over the packed tables against
 their plain version and the (G, rows) tables' (operators' tables and
 synthetic ones: a width-0 slice, a ragged last slice, int64 columns), and
-Explicit/Auto/rectangular pairs through it, memory tracking, and the
-distributed path on NCCL when the machine has two GPUs or more.
+Explicit/Auto/rectangular pairs through it, the XOR-dense engine's and the
+kernel's XParity applies over virtual ranks against one device, memory
+tracking, and the distributed path on NCCL (state files and
+``convert_state`` too) when the machine has two GPUs or more.
 
 Every test here needs a card (marker ``cuda``) and skips without one. The
 file imports no JAX, so it runs on a machine without it, from the root of
@@ -866,3 +868,133 @@ def test_general_routes_on_nccl(card, tmp_path):
                               - oracle) < 1e-10
         exact = np.linalg.eigvalsh(M.toarray())[:2]
         assert np.allclose(ranks[0]['evals'], exact, rtol=1e-10, atol=0)
+
+
+def _syk_case(space):
+    """syk(12) on Full(12), syk(11) on Parity(13) even: dimension 4096, past
+    the XOR kernel's shared-memory tables."""
+    if space == 'full':
+        return models.syk(12), subspaces.Full(L=12)
+    return models.syk(11), subspaces.Parity('even', L=13)
+
+
+@pytest.mark.parametrize('world', [2, 4])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('space', ['full', 'even'])
+def test_sharded_xor_dense_on_card(card, space, dtype, world):
+    """The XOR-dense engine's per-rank apply over ``world`` virtual ranks
+    on the card against the one-device engine on the card, within 1e-5 /
+    1e-12 relative to max|y|: one call a rank, the ranks sharing one set
+    of channel matrices, the split within a rank's bits."""
+    from dynamite_tpu_torch.ops.xor_dense import xor_dense_apply
+    H, sub = _syk_case(space)
+    one, over = _virtual(H, sub, world)
+    assert (one.engine, over.engine) == ('xor_dense', 'xor_dense')
+    t = over.xor_dense
+    assert t.La <= 12 - (world.bit_length() - 1)
+    x = torch.from_numpy(_planes(4096, seed=world)).to(card, dtype)
+    y1 = one.apply(x)
+    before = xor_dense_apply.applies
+    y = over.apply(x)
+    assert xor_dense_apply.applies == before + world
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert y.is_cuda
+    assert float((y - y1).abs().max() / y1.abs().max()) <= tol
+    mats = t.mats(dtype, y.device)
+    for r in range(world):
+        for run, mat in zip(t.on(dtype, y.device, r, world), mats):
+            assert run[1] is mat[1]
+
+
+@pytest.mark.parametrize('world', [2, 4])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('parent', ['full', 'even'])
+def test_sharded_xparity_on_card(card, parent, dtype, world):
+    """XParity over Full(12) and Parity(12) even over ``world`` virtual
+    ranks through the kernel's sharded route (one launch a rank, the sign
+    on the global row) against the one-device kernel, within 1e-5 / 1e-12
+    relative to max|y|."""
+    from dynamite_tpu_torch.ops.xor_apply import xor_apply_sharded
+    H = models.localized(12)
+    H.allow_projection = True
+    sub = subspaces.XParity(_sub(parent, L=12), '-')
+    one, over = _virtual(H, sub, world)
+    assert (one.engine, over.engine) == ('xor', 'xor')
+    dim = sub.get_dimension()
+    x = torch.from_numpy(_planes(dim, seed=world)).to(card, dtype)
+    y1 = one.apply(x)
+    before = xor_apply_sharded.launches
+    y = over.apply(x)
+    assert xor_apply_sharded.launches == before + world
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((y - y1).abs().max() / y1.abs().max()) <= tol
+
+
+def test_xor_route_and_files_on_nccl(card, tmp_path):
+    """XParity pairs, SYK through the XOR-dense engine, state files and
+    ``XParity.convert_state`` over one rank per GPU on NCCL (the largest
+    power of two of them, up to 4): every rank on the same route and
+    split, the dots within 1e-12 of the numpy oracle and of the one-device
+    engine, evolve within 1e-10 of expm_multiply, eigenvalues within 1e-10
+    of eigvalsh (float64); the ranks' file byte for byte a one-process
+    save, each rank's rows of a load and of a conversion bitwise one
+    process's, pads 0; needs two GPUs or more."""
+    n_gpus = torch.cuda.device_count()
+    if n_gpus < 2:
+        pytest.skip('needs two GPUs or more')
+    from tests.test_torch_distributed import (CONVERT, FILE_SPACES, SYK,
+                                              XPARITY, _files_inputs,
+                                              _spawn, _syk_model,
+                                              _xparity_model)
+    world = min(1 << (n_gpus.bit_length() - 1), 4)
+
+    def port_save(space, v, fname):
+        from tests.test_torch_distributed import _parent_sub
+        psi = State(subspace=_parent_sub(subspaces, space, 8))
+        psi.set_planes(v)
+        psi.save(fname)
+
+    _files_inputs(tmp_path, port_save)
+    recs = _spawn('files', world, tmp_path, device='cuda')
+    for r in recs:
+        assert all(r.values()), [k for k, ok in r.items() if not ok]
+        assert len(r) == 3 * len(FILE_SPACES) + 8 * len(CONVERT)
+    for space in FILE_SPACES:
+        for ext in ('.vec', '.metadata'):
+            assert (tmp_path / f'ranks_{space}{ext}').read_bytes() == \
+                (tmp_path / f'one_{space}{ext}').read_bytes()
+
+    for name in XPARITY:
+        H, sub = _xparity_model('dynamite_tpu_torch', name, '+')
+        np.save(tmp_path / f'{name}_v.npy', _planes(sub.get_dimension(),
+                                                    seed=8))
+    np.save(tmp_path / 'syk_v.npy', _planes(4096, seed=9))
+    recs = _spawn('xor_route', world, tmp_path, device='cuda')
+    for key in recs[0]:
+        assert all(r[key] == recs[0][key] for r in recs), key
+    for name in XPARITY:
+        for sector in '+-':
+            key = name + sector
+            assert recs[0][key]['engine'] == 'xor'
+            H, sub = _xparity_model('dynamite_tpu_torch', name, sector)
+            v = np.load(tmp_path / f'{name}_v.npy')
+            x = v[0] + 1j * v[1]
+            M = H.to_numpy()
+            got = np.load(tmp_path / f'{key}_hv.npy')
+            assert np.max(np.abs(got - M @ x)) <= \
+                1e-12 * np.max(np.abs(M @ x))
+            oracle = scipy.sparse.linalg.expm_multiply(-1j * M, x)
+            assert np.linalg.norm(np.load(tmp_path / f'{key}_evolved.npy')
+                                  - oracle) < 1e-10
+            exact = np.linalg.eigvalsh(M.toarray())[:2]
+            assert np.allclose(np.sort(recs[0][key]['evals'])[:2], exact,
+                               rtol=1e-10, atol=0)
+    v = np.load(tmp_path / 'syk_v.npy')
+    for name in SYK:
+        assert recs[0][name]['engine'] == 'xor_dense'
+        H, sub = _syk_model('dynamite_tpu_torch', name)
+        one = H.get_mat().apply(torch.as_tensor(v, device=card)).cpu()
+        one = one.numpy()
+        got = np.load(tmp_path / f'{name}_hv.npy')
+        want = one[0] + 1j * one[1]
+        assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))

@@ -1,9 +1,12 @@
 """
 The port's distributed paths on spawned ranks (torch.distributed on gloo,
 CPU tensors) against numpy/scipy oracles and the JAX package: the XOR path
-on 2 and 4 ranks, and the general routes over ranks (the sector engine's
-alpha ring, each rank's ELL tables, the ring sweep) on 2, 3 and 4 ranks,
-with the padded row layout where the dimension does not divide the world.
+on 2 and 4 ranks (XParity pairs over Full and Parity, and SYK through the
+XOR-dense engine's per-rank apply, included), the general routes over
+ranks (the sector engine's alpha ring, each rank's ELL tables, the ring
+sweep) on 2, 3 and 4 ranks, with the padded row layout where the dimension
+does not divide the world, state files and ``XParity.convert_state`` on 2,
+3 and 4 ranks, and a mirror of tests/integration/test_multiprocess.py on 2.
 
 Each case spawns its ranks once. A rank runs this file as a script (see the
 bottom): it imports torch and the port but neither JAX nor
@@ -17,7 +20,9 @@ Tolerances: matvec 1e-12 relative to max|y| in float64 (the same terms,
 summed per row in the same order as one process); evolve, with the solver's
 tol at 1e-12, 1e-10 in the 2-norm against ``expm_multiply`` and against the
 JAX package's expmv; eigenvalues 1e-10 relative against ``eigvalsh`` and the
-JAX package's sharded eigsolve on its virtual mesh.
+JAX package's eigsolve (sharded on its virtual mesh, or on one device where
+the case says so). State files are compared byte for byte, and each rank's
+rows of a load or a conversion bitwise against one process's.
 """
 
 import json
@@ -364,6 +369,248 @@ def test_layouts_the_xor_path_cannot_take(dim, world):
         mesh._check(dim, world)
 
 
+# the XOR route's new pairs: (model, L, parent space) of the XParity cases,
+# (syk n, space, L) of the SYK cases (both of dimension 2**12, the XOR-dense
+# engine's minimum)
+XPARITY = {'xfull8': ('localized', 8, 'full'),
+           'xeven10': ('heisenberg', 10, 'even')}
+SYK = {'syk_full12': (12, 'full', 12), 'syk_even13': (11, 'even', 13)}
+
+
+def _parent_sub(subspaces, space, L):
+    return {'full': lambda: subspaces.Full(L=L),
+            'even': lambda: subspaces.Parity('even', L=L),
+            'sc': lambda: subspaces.SpinConserve(L, L // 2)}[space]()
+
+
+def _xparity_model(pkg, name, sector):
+    """An XParity case in one package; localized's Z fields do not commute
+    with the global flip, so it is projected."""
+    import importlib
+    models = importlib.import_module(pkg + '.models')
+    subspaces = importlib.import_module(pkg + '.subspaces')
+    model, L, space = XPARITY[name]
+    H = getattr(models, model)(L)
+    H.allow_projection = True
+    sub = subspaces.XParity(_parent_sub(subspaces, space, L), sector)
+    H.add_subspace(sub)
+    return H, sub
+
+
+def _syk_model(pkg, name, seed=0):
+    import importlib
+    models = importlib.import_module(pkg + '.models')
+    subspaces = importlib.import_module(pkg + '.subspaces')
+    n, space, L = SYK[name]
+    H = models.syk(n, seed=seed)
+    sub = _parent_sub(subspaces, space, L)
+    H.add_subspace(sub)
+    return H, sub
+
+
+def _one_device_ref():
+    """The JAX package on a mesh of one device (its 8-device virtual mesh
+    is a suite hazard, ROADMAP.md queue 3): a context for its references."""
+    import contextlib
+    from dynamite_tpu import config as ref_config
+    from dynamite_tpu.parallel.mesh import make_mesh
+
+    @contextlib.contextmanager
+    def one():
+        saved = ref_config.mesh
+        try:
+            ref_config._L = None
+            ref_config._subspace = None
+            ref_config._mesh = make_mesh(mesh_shape=(1,))
+            yield
+        finally:
+            ref_config._mesh = saved
+            ref_config._L = None
+            ref_config._subspace = None
+    return one()
+
+
+@pytest.mark.parametrize('world', [2, 4])
+def test_xor_route_over_ranks(world, tmp_path):
+    """XParity pairs over Full and Parity, both sectors, and SYK past the
+    XOR kernel's tables, over ``world`` ranks: XParity takes the XOR route
+    (its dot, evolve and eigsolve against the JAX package on one device
+    and numpy/scipy), SYK the XOR-dense engine's per-rank apply (its dot
+    against the port's one-device engine and the JAX package's apply), and
+    every rank takes the same route, split and decisions."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from scipy.sparse.linalg import expm_multiply
+    from dynamite_tpu.solvers.expmv import expmv as ref_expmv
+    for name in XPARITY:
+        _H, sub = _xparity_model('dynamite_tpu_torch', name, '+')
+        np.save(tmp_path / f'{name}_v.npy', _planes(sub.get_dimension(),
+                                                    seed=8))
+    np.save(tmp_path / 'syk_v.npy', _planes(4096, seed=9))
+    recs = _spawn('xor_route', world, tmp_path)
+    for key in recs[0]:
+        assert all(r[key] == recs[0][key] for r in recs), key
+
+    for name in XPARITY:
+        for sector in '+-':
+            key = name + sector
+            rec = recs[0][key]
+            assert rec['engine'] == 'xor', key
+            H, sub = _xparity_model('dynamite_tpu_torch', name, sector)
+            v = np.load(tmp_path / f'{name}_v.npy')
+            x = v[0] + 1j * v[1]
+            M = H.to_numpy()
+            got = np.load(tmp_path / f'{key}_hv.npy')
+            assert _rel(got, M @ x) < 1e-12, key
+            evolved = np.load(tmp_path / f'{key}_evolved.npy')
+            assert np.linalg.norm(evolved - expm_multiply(-1j * M, x)) \
+                < 1e-10, key
+            lowest = np.sort(rec['evals'])[:2]
+            exact = np.linalg.eigvalsh(M.toarray())[:2]
+            assert np.allclose(lowest, exact, rtol=1e-10, atol=0), key
+            with _one_device_ref():
+                H_ref, s_ref = _xparity_model('dynamite_tpu', name, sector)
+                kernel = H_ref.get_mat(subspaces=(s_ref, s_ref))
+                y = np.asarray(jax.jit(kernel.traceable(sharded=False))(v))
+                assert _rel(got, y[0] + 1j * y[1]) < 1e-12, key
+                w = np.asarray(ref_expmv(kernel.krylov_ops(30),
+                                         jnp.asarray(v), -1j,
+                                         H_ref.infinity_norm(), ncv=30,
+                                         tol=1e-12))
+                assert np.linalg.norm(evolved - (w[0] + 1j * w[1])) \
+                    < 1e-10, key
+                want = H_ref.eigsolve(nev=2, subspace=s_ref)
+            assert np.allclose(lowest, np.sort(want)[:2], rtol=1e-10,
+                               atol=0), key
+
+    v = np.load(tmp_path / 'syk_v.npy')
+    local_bits = 12 - (world.bit_length() - 1)
+    for name in SYK:
+        rec = recs[0][name]
+        assert rec['engine'] == 'xor_dense' and rec['La'] <= local_bits
+        H, sub = _syk_model('dynamite_tpu_torch', name)
+        got = np.load(tmp_path / f'{name}_hv.npy')
+        one = H.get_mat().apply(torch.as_tensor(v)).numpy()
+        assert _rel(got, one[0] + 1j * one[1]) < 1e-12, name
+        with _one_device_ref():
+            H_ref, s_ref = _syk_model('dynamite_tpu', name)
+            kernel = H_ref.get_mat(subspaces=(s_ref, s_ref))
+            y = np.asarray(jax.jit(kernel.traceable(sharded=False))(v))
+        assert _rel(got, y[0] + 1j * y[1]) < 1e-12, name
+
+
+def test_syk_differing_by_rank_raises(tmp_path):
+    """An SYK operator drawn with a seed of each rank's own raises on
+    every rank before any route is chosen: the XOR-dense engine's split
+    and layout come from the operator, the same on every rank."""
+    recs = _spawn('crc_syk', 2, tmp_path)
+    assert all('inconsistent across ranks' in r['error'] for r in recs)
+
+
+# state files and conversions over ranks: the saved spaces (Full(8) pads at
+# 3 ranks, SpinConserve(8, 4) at 3 and 4) and the XParity parents
+FILE_SPACES = ('full', 'sc')
+CONVERT = ('full', 'even', 'sc')
+
+
+def _files_inputs(tmp_path, other_save):
+    """The inputs of the rank case 'files', made by the port on one
+    process: each saved space's vector and its one-process save, a file of
+    it saved by ``other_save(space, v, fname)``, and for each XParity
+    parent and sector the two input vectors and their one-process
+    conversions."""
+    import torch
+    from dynamite_tpu_torch import subspaces
+    from dynamite_tpu_torch.states import State
+    for i, space in enumerate(FILE_SPACES):
+        sub = _parent_sub(subspaces, space, L)
+        v = _planes(sub.get_dimension(), seed=20 + i)
+        np.save(tmp_path / f'{space}_v.npy', v)
+        one = State(subspace=sub)
+        one.set_planes(v)
+        one.save(str(tmp_path / f'one_{space}'))
+        other_save(space, v, str(tmp_path / f'other_{space}'))
+    for i, space in enumerate(CONVERT):
+        for sector in '+-':
+            xp = subspaces.XParity(_parent_sub(subspaces, space, L), sector)
+            pv = _planes(xp.parent.get_dimension(), seed=30 + i)
+            cv = _planes(xp.get_dimension(), seed=40 + i)
+            np.save(tmp_path / f'{space}{sector}_pv.npy', pv)
+            np.save(tmp_path / f'{space}{sector}_cv.npy', cv)
+            p_state, c_state = State(subspace=xp.parent), State(subspace=xp)
+            p_state.set_planes(pv)
+            c_state.set_planes(cv)
+            for name, out in (('to_child', xp.convert_state(p_state)),
+                              ('to_parent', xp.convert_state(c_state))):
+                np.save(tmp_path / f'{space}{sector}_{name}.npy',
+                        out.data.to('cpu', torch.float64).numpy())
+
+
+@pytest.mark.parametrize('world', [2, 3, 4])
+def test_state_files_and_convert_over_ranks(world, tmp_path):
+    """``State.save`` from the ranks writes, byte for byte, the files of a
+    one-process save of the gathered vector (and the JAX package's
+    ``.vec``); the JAX package reads them; ``State.from_file`` gives each
+    rank its rows, bitwise, pads 0, of the ranks' file and of one the JAX
+    package saved; ``XParity.convert_state`` on Full(8), Parity('even',
+    L=8) and SpinConserve(8, 4) parents, both sectors, both ways, gives
+    each rank its rows of one process's conversion, bitwise, pads 0, and
+    the gathered results agree with the JAX package's conversion."""
+    from dynamite_tpu import subspaces as ref_subspaces
+    from dynamite_tpu.states import State as RefState
+
+    def jax_save(space, v, fname):
+        with _one_device_ref():
+            ref = RefState(subspace=_parent_sub(ref_subspaces, space, L))
+            ref.set_all_numpy(v[0] + 1j * v[1])
+            ref.save(fname)
+
+    _files_inputs(tmp_path, jax_save)
+    recs = _spawn('files', world, tmp_path)
+    for r in recs:
+        assert all(r.values()), [k for k, ok in r.items() if not ok]
+        assert len(r) == 3 * len(FILE_SPACES) + 8 * len(CONVERT)
+
+    for space in FILE_SPACES:
+        for ext in ('.vec', '.metadata'):
+            assert (tmp_path / f'ranks_{space}{ext}').read_bytes() == \
+                (tmp_path / f'one_{space}{ext}').read_bytes(), space + ext
+        assert (tmp_path / f'ranks_{space}.vec').read_bytes() == \
+            (tmp_path / f'other_{space}.vec').read_bytes(), space
+        v = np.load(tmp_path / f'{space}_v.npy')
+        with _one_device_ref():
+            loaded = RefState.from_file(str(tmp_path / f'ranks_{space}'))
+            assert loaded.subspace == _parent_sub(ref_subspaces, space, L)
+            assert np.array_equal(loaded.to_numpy(), v[0] + 1j * v[1])
+    for space in CONVERT:
+        for sector in '+-':
+            key = f'{space}{sector}'
+            with _one_device_ref():
+                xp = ref_subspaces.XParity(
+                    _parent_sub(ref_subspaces, space, L), sector)
+                for src, vname, to in ((xp.parent, 'pv', 'to_child'),
+                                       (xp, 'cv', 'to_parent')):
+                    v = np.load(tmp_path / f'{key}_{vname}.npy')
+                    psi = RefState(subspace=src)
+                    psi.set_all_numpy(v[0] + 1j * v[1])
+                    want = xp.convert_state(psi).to_numpy()
+                    got = np.load(tmp_path / f'{key}_{to}_ranks.npy')
+                    assert np.max(np.abs(got - want)) < 1e-14, (key, to)
+
+
+def test_multiprocess_contracts(tmp_path):
+    """The port's mirror of tests/integration/test_multiprocess.py on 2
+    gloo ranks (its worker's three contracts): an unseeded random state is
+    the same on every rank (rank 0's seed broadcast; a CRC of the gathered
+    vector, all-gathered), evolve of heisenberg(10) from the Neel state at
+    t = 0.3 matches scipy's expm_multiply within 1e-8, and a save from the
+    ranks is read back by ``from_file`` on every rank."""
+    recs = _spawn('mirror', 2, tmp_path)
+    assert recs[0]['crc'] == recs[1]['crc']
+    assert all(r['evolve_err'] < 1e-8 and r['reloaded'] for r in recs)
+
+
 # -- the rank processes ---------------------------------------------------
 
 
@@ -510,6 +757,108 @@ def _rank_main(case, rank, world, store, out_dir, device):
             one['pads_zero'] = ok
             for k, val in saved.items():
                 setattr(config, k, val)
+    elif case == 'xor_route':
+        from dynamite_tpu_torch import computations
+        for name in XPARITY:
+            for sector in '+-':
+                H, sub = _xparity_model('dynamite_tpu_torch', name, sector)
+                key = name + sector
+                psi = state(sub, load(f'{name}_v.npy'))
+                save(f'{key}_hv.npy', H.dot(psi).to_numpy())
+                out = H.evolve(psi, t=1.0, tol=1e-12)
+                save(f'{key}_evolved.npy', out.to_numpy())
+                evals = H.eigsolve(nev=2)
+                rec[key] = {
+                    'engine': H.get_mat().engine,
+                    'evals': [float(e) for e in evals],
+                    'stats': {k: v for k, v in
+                              computations.last_solve_stats.items()
+                              if not k.endswith('_s')}}
+        for name in SYK:
+            H, sub = _syk_model('dynamite_tpu_torch', name)
+            psi = state(sub, load('syk_v.npy'))
+            save(f'{name}_hv.npy', H.dot(psi).to_numpy())
+            k = H.get_mat()
+            lay = k.xor_dense.layout(
+                (k.plan.dim_right // world).bit_length() - 1)
+            rec[name] = {'engine': k.engine, 'La': k.xor_dense.La,
+                         'hi_list': lay.hi_list,
+                         'channels': k.xor_dense.channels}
+    elif case == 'crc_syk':
+        H, sub = _syk_model('dynamite_tpu_torch', 'syk_full12', seed=rank)
+        try:
+            H.get_mat(subspaces=(sub, sub))
+            rec['error'] = ''
+        except RuntimeError as err:
+            rec['error'] = str(err)
+    elif case == 'files':
+        import torch
+        from dynamite_tpu_torch import subspaces
+        from dynamite_tpu_torch.parallel import mesh
+
+        def mine(name, dim):
+            """This rank's rows of a one-process (2, dim) result."""
+            return mesh.local_rows(torch.as_tensor(load(name)), dim)
+
+        for space in FILE_SPACES:
+            sub = _parent_sub(subspaces, space, L)
+            dim = sub.get_dimension()
+            psi = state(sub, load(f'{space}_v.npy'))
+            fname = os.path.join(out_dir, f'ranks_{space}')
+            psi.save(fname)
+            back = State.from_file(fname).data.cpu()
+            want = mine(f'{space}_v.npy', dim)
+            rec[f'{space}_saved_loaded'] = torch.equal(back, want)
+            keep = mesh.valid_rows(dim)
+            rec[f'{space}_pads_zero'] = bool((back[:, keep:] == 0).all())
+            # a file another writer saved (the JAX package in the CPU test)
+            other = State.from_file(os.path.join(out_dir, f'other_{space}'))
+            rec[f'{space}_other_loaded'] = torch.equal(other.data.cpu(),
+                                                       want)
+        for space in CONVERT:
+            for sector in '+-':
+                key = f'{space}{sector}'
+                xp = subspaces.XParity(_parent_sub(subspaces, space, L),
+                                       sector)
+                pdim, cdim = xp.parent.get_dimension(), xp.get_dimension()
+                child = xp.convert_state(state(xp.parent,
+                                               load(f'{key}_pv.npy')))
+                parent = xp.convert_state(state(xp, load(f'{key}_cv.npy')))
+                back = xp.convert_state(parent)
+                rec[f'{key}_to_child'] = torch.equal(
+                    child.data.cpu(), mine(f'{key}_to_child.npy', cdim))
+                rec[f'{key}_to_parent'] = torch.equal(
+                    parent.data.cpu(), mine(f'{key}_to_parent.npy', pdim))
+                rec[f'{key}_pads_zero'] = bool(
+                    (child.data[:, mesh.valid_rows(cdim):] == 0).all()
+                    and (parent.data[:, mesh.valid_rows(pdim):] == 0).all())
+                # to the parent and back is the identity
+                rec[f'{key}_round_trip'] = bool(torch.allclose(
+                    back.data.cpu(), mine(f'{key}_cv.npy', cdim), rtol=0,
+                    atol=1e-14))
+                save(f'{key}_to_child_ranks.npy', child.to_numpy())
+                save(f'{key}_to_parent_ranks.npy', parent.to_numpy())
+    elif case == 'mirror':
+        import zlib
+        from scipy.sparse.linalg import expm_multiply
+        from dynamite_tpu_torch.models import heisenberg
+        n = 10
+        config.L = n
+        v = State(state='random').to_numpy()
+        rec['crc'] = zlib.crc32(v.tobytes())
+        crcs = multihost.allgather_host_values(np.asarray([rec['crc']]))
+        assert np.all(crcs == crcs[0]), f'divergent random states: {crcs}'
+        H = heisenberg(n)
+        s0 = State(state='U' * (n // 2) + 'D' * (n - n // 2))
+        out = H.evolve(s0, 0.3)
+        got = out.to_numpy()
+        want = expm_multiply(-1j * 0.3 * H.to_numpy(), s0.to_numpy())
+        rec['evolve_err'] = float(np.abs(got - want).max())
+        fname = os.path.join(out_dir, 'state.dnm')
+        out.save(fname)
+        loaded = State.from_file(fname)
+        rec['reloaded'] = bool(np.allclose(loaded.to_numpy(), got,
+                                           atol=1e-12))
     else:
         raise ValueError(case)
 

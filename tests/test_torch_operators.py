@@ -206,12 +206,16 @@ def test_conserves_matches_reference():
 
 def test_unported_subspaces_name_their_roadmap_item(monkeypatch, tmp_path):
     """Explicit and Auto are ported, over ranks too (their ELL tables built
-    per rank: here over two virtual ranks); what is not yet over ranks, an
-    XParity pair over Full, state files and ``XParity.convert_state``,
-    raises naming its item (ROADMAP.md queue 1, item 12)."""
+    per rank: here over two virtual ranks), and so is the last of item 12's
+    single-host part (ROADMAP.md queue 1): an XParity pair over Full takes
+    the XOR route over ranks and applies as on one device, and
+    ``XParity.convert_state`` and ``State.from_file`` give each rank its
+    rows of one process's result, bitwise, pads 0. The ranks of a process
+    group of 2 and 3 are run here in turn, the input's all-gather handed
+    the whole vector (``tests/test_torch_distributed.py`` spawns them)."""
+    from dynamite_tpu_torch.ops import apply as apply_mod
     from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
-    from dynamite_tpu_torch.parallel import multihost
-    from dynamite_tpu_torch.states import State
+    from dynamite_tpu_torch.parallel import mesh, multihost
     H = models.heisenberg(L)
     auto = subspaces.Auto(H, 'UUUUDDDD')
     explicit = subspaces.Explicit([0, 1], L=L)
@@ -221,18 +225,39 @@ def test_unported_subspaces_name_their_roadmap_item(monkeypatch, tmp_path):
         assert OperatorKernel(H.msc, sub, sub,
                               transport=VirtualTransport(2)).engine == 'ell'
     xfull = subspaces.XParity(subspaces.Full(L=L))
-    psi = State(state=0, subspace=xfull)
-    saved = State(state=0, subspace=subspaces.Full(L=L))
-    saved.save(str(tmp_path / 'psi'))
-    monkeypatch.setattr(multihost, 'world_size', lambda: 2)
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 12'):
-        OperatorKernel(xfull.reduce_msc(H.msc), xfull, xfull)
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 12'):
-        xfull.convert_state(psi)
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 12'):
-        saved.save(str(tmp_path / 'again'))
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 12'):
-        State.from_file(str(tmp_path / 'psi'))
+    msc = xfull.reduce_msc(H.msc)
+    over = OperatorKernel(msc, xfull, xfull, transport=VirtualTransport(2))
+    assert over.engine == 'xor'
+    x = torch.as_tensor(np.random.RandomState(0).standard_normal((2, 128)))
+    assert torch.equal(over.apply(x), OperatorKernel(msc, xfull,
+                                                     xfull).apply(x))
+
+    planes = np.random.RandomState(1).standard_normal((2, 1 << L))
+    parent = State(subspace=xfull.parent)
+    parent.set_planes(planes)
+    child = xfull.convert_state(parent)
+    back = xfull.convert_state(child).data
+    parent.save(str(tmp_path / 'psi'))
+    for world in (2, 3):
+        for r in range(world):
+            with monkeypatch.context() as m:
+                m.setattr(multihost, 'world_size', lambda: world)
+                m.setattr(multihost, 'rank', lambda: r)
+                for src, want in ((parent, child.data), (child, back)):
+                    mine = State(subspace=src.subspace)
+                    mine.set_planes(src.data)
+                    whole = mesh.local_rows(src.data, len(src), 0, 1)
+                    n = mesh.local_dim(len(src))
+                    padded = torch.zeros((2, n * world), dtype=whole.dtype)
+                    padded[:, :len(src)] = whole
+                    m.setattr(apply_mod, 'all_gather_rows',
+                              lambda t, padded=padded: padded)
+                    got = xfull.convert_state(mine).data
+                    assert torch.equal(got, mesh.local_rows(want,
+                                                            want.shape[1]))
+                loaded = State.from_file(str(tmp_path / 'psi'))
+                assert torch.equal(loaded.data, mesh.local_rows(
+                    torch.as_tensor(planes), 1 << L))
 
 
 def test_port_imports_no_jax():

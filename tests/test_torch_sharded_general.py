@@ -18,7 +18,7 @@ test_sector_shard.py):
   sharded apply on its virtual mesh (its sharded ELL tables), within 1e-12
   relative in float64, with the pad rows exactly 0;
 * the dispatch table (pair, P, config) -> ``engine``, and the pairs left
-  out raising;
+  out until item 12's last slice routing;
 * per-rank ring tables at P = 4 below 0.7x those at P = 2.
 
 The spawned process-group runs of these routes (dot, evolve and eigsolve
@@ -432,27 +432,35 @@ def test_ring_by_size(monkeypatch):
 
 
 @pytest.mark.parametrize('world', [2, 3])
-def test_left_out_pairs_raise(world):
-    """XParity over Full and many-mask XOR operators past the kernel's
-    tables on a world the XOR route takes (the XOR-dense engine over
-    ranks) raise, naming item 12."""
-    with pytest.raises(NotImplementedError, match='item 12'):
-        H = models.heisenberg(6)
-        sub = subspaces.XParity(subspaces.Full(L=6), '+')
+def test_left_out_pairs_raise(world, monkeypatch):
+    """The pairs item 12 left out until now route over ranks (ROADMAP.md
+    queue 1): XParity over Full takes the XOR route on a world it divides
+    (2) and the general route (ELL) on another (3); a many-mask XOR
+    operator past the kernel's tables takes the XOR-dense engine over the
+    XOR route's layout once the engine takes its dimension, the ELL route
+    below it and on another world. Each applies as on one device."""
+    def check(H, sub, want):
         H.add_subspace(sub)
-        OperatorKernel(H._msc_on(sub), sub, sub,
-                       transport=VirtualTransport(world))
-    H = models.syk(11)
-    sub = subspaces.Parity('even', L=11)
-    H.add_subspace(sub)
-    if world == 2:
-        with pytest.raises(NotImplementedError, match='item 12'):
-            OperatorKernel(H._msc_on(sub), sub, sub,
-                           transport=VirtualTransport(world))
-    else:
-        k = OperatorKernel(H._msc_on(sub), sub, sub,
-                           transport=VirtualTransport(world))
-        assert k.engine == 'ell'
+        msc = H._msc_on(sub)
+        k = OperatorKernel(msc, sub, sub, transport=VirtualTransport(world))
+        assert k.engine == want
+        dim = sub.get_dimension()
+        x = _planes(dim, seed=world)
+        padded = torch.zeros((2, mesh.storage_dim(dim, world)),
+                             dtype=torch.float64)
+        padded[:, :dim] = torch.as_tensor(x)
+        got = k.apply(padded)
+        assert not got[:, dim:].any()
+        want_y = OperatorKernel(msc, sub, sub).apply(torch.as_tensor(x))
+        assert _rel(got[:, :dim].numpy(), want_y.numpy()) <= 1e-12
+
+    check(models.heisenberg(6), subspaces.XParity(subspaces.Full(L=6), '+'),
+          'xor' if world == 2 else 'ell')
+    check(models.syk(11), subspaces.Parity('even', L=11), 'ell')
+    from dynamite_tpu_torch.ops import xor_dense
+    monkeypatch.setattr(xor_dense, 'MIN_DIM', 1 << 6)
+    check(models.syk(11), subspaces.Parity('even', L=11),
+          'xor_dense' if world == 2 else 'ell')
 
 
 # -- memory ----------------------------------------------------------------

@@ -349,23 +349,55 @@ def test_operator_projected_away_is_zero():
     assert H.to_numpy().nnz == 0
 
 
-def test_sector_engine_and_xparity_refuse_ranks(monkeypatch):
+def test_sector_engine_and_xparity_refuse_ranks(monkeypatch, tmp_path):
     """With a process group of two ranks, SpinConserve pairs, plain and
     XParity-wrapped, take the sector engine's alpha ring (ops/sector_shard.py,
-    whose build needs no collective), XParity over Full still raises,
-    naming the distributed item (ROADMAP.md queue 1, item 12), and Full
-    builds the XOR route."""
+    whose build needs no collective), XParity over Full now takes the XOR
+    route (ROADMAP.md queue 1, item 12) as Full does, and an
+    XParity(SpinConserve) state converts to its parent and back, and loads
+    from a file, each rank holding its rows of one process's result,
+    bitwise (the two ranks run here in turn, the input's all-gather handed
+    the whole vector; tests/test_torch_distributed.py spawns them)."""
+    from dynamite_tpu_torch.ops import apply as apply_mod
     from dynamite_tpu_torch.ops.apply import OperatorKernel
-    from dynamite_tpu_torch.parallel import multihost
-    monkeypatch.setattr(multihost, 'world_size', lambda: 2)
+    from dynamite_tpu_torch.parallel import mesh, multihost
     H = models.heisenberg(L)
     H.reduce_msc()
+    xsc = subspaces.XParity(subspaces.SpinConserve(L, L // 2), '-')
+    planes = np.random.RandomState(2).standard_normal(
+        (2, xsc.get_dimension()))
+    child = State(subspace=xsc)
+    child.set_planes(planes)
+    parent = xsc.convert_state(child)
+    back = xsc.convert_state(parent).data
+    assert torch.allclose(back, child.data, rtol=0, atol=1e-14)
+    child.save(str(tmp_path / 'psi'))
+    monkeypatch.setattr(multihost, 'world_size', lambda: 2)
     for sub in (subspaces.SpinConserve(L, L // 2),
                 subspaces.XParity(subspaces.SpinConserve(L, L // 2))):
         msc = H.msc if sub.product_state_basis else sub.reduce_msc(H.msc)
         assert OperatorKernel(msc, sub, sub).engine == 'sector_ring'
     sub = subspaces.XParity(subspaces.Full(L=L))
-    with pytest.raises(NotImplementedError, match='item 12'):
-        OperatorKernel(sub.reduce_msc(H.msc), sub, sub)
+    assert OperatorKernel(sub.reduce_msc(H.msc), sub, sub).engine == 'xor'
     full = subspaces.Full(L=L)
     assert OperatorKernel(H.msc, full, full).tables is not None
+    for r in range(2):
+        with monkeypatch.context() as m:
+            m.setattr(multihost, 'rank', lambda: r)
+            for src, to, want in ((child, xsc.parent, parent.data),
+                                  (parent, xsc, back)):
+                mine = State(subspace=src.subspace)
+                mine.set_planes(src.data)
+                n = len(src)
+                padded = torch.zeros((2, 2 * mesh.local_dim(n)),
+                                     dtype=src.data.dtype)
+                padded[:, :n] = src.data
+                m.setattr(apply_mod, 'all_gather_rows',
+                          lambda t, padded=padded: padded)
+                got = xsc.convert_state(mine)
+                assert got.subspace is to
+                assert torch.equal(got.data, mesh.local_rows(
+                    want, want.shape[1]))
+            loaded = State.from_file(str(tmp_path / 'psi'))
+            assert torch.equal(loaded.data, mesh.local_rows(
+                torch.as_tensor(planes), xsc.get_dimension()))

@@ -11,8 +11,8 @@ apply, with the port's XOR kernel's plain version and with
 ``msc_to_matrix`` (1e-12 relative in float64, 1e-5 in float32). The port's
 split chooser, fed the JAX package's cost constants, makes its choice.
 Dispatch: the XOR kernel first wherever its tables hold the operator
-(few-mask operators, small SYK), the engine past that, and what neither
-takes raises. Eigenvalues of a small SYK agree with eigvalsh
+(few-mask operators, small SYK), the engine past that (over two ranks
+too), and what neither takes runs the ELL engine. Eigenvalues of a small SYK agree with eigvalsh
 to 1e-10.
 """
 
@@ -279,7 +279,8 @@ def test_dispatch(monkeypatch):
     float32 and float64: long_range and localized (not ``use_scan``), and
     SYK up to syk(11) on Full(11). Past that, the engine: syk(12) on
     Full(12), at the engine's own minimum dimension, and syk(11) on
-    Parity(11) below it. What neither takes raises, naming its item."""
+    Parity(11) below it. Over a process group of two ranks the engine
+    takes syk(12) on Full(12) too, its split capped at a rank's block."""
     def kernel_of(H, sub):
         H.add_subspace(sub)
         return H.get_mat(subspaces=(sub, sub))
@@ -310,8 +311,9 @@ def test_dispatch(monkeypatch):
 
     monkeypatch.setattr(port_apply.multihost, 'world_size', lambda: 2)
     sub = subspaces.Full(L=12)
-    with pytest.raises(NotImplementedError, match='item 12'):
-        port_apply.OperatorKernel(_syk(models, 12).msc, sub, sub)
+    k = port_apply.OperatorKernel(_syk(models, 12).msc, sub, sub)
+    assert k.engine == 'xor_dense' and k.xor_dense.La <= 11
+    assert port_apply.sharded_route(k.plan, sub, sub, 2) == 'xor'
 
 
 def test_disabled_engine(monkeypatch):
