@@ -99,7 +99,14 @@ on the same sector discovered by Auto through the ELL kernel:
    through the alpha ring and through each rank's ELL tables, and over
    two ranks or more SpinConserve(26, 13) through ELL; with three GPUs or
    more a second spawn at world 3 runs the general pairs on the padded
-   layout (see distributed_general).
+   layout (see distributed_general);
+13. ``examples``: the JAX package's example scripts (floquet at L=24 with
+   a checkpoint and a resume, and at L=16; kagome '24'; mbl at L=14; syk
+   at N=32) through the package switch, each in its own process, and the
+   port of the sharded one (``run_sharded_torch.py``, SpinConserve(30, 15)
+   over 4 virtual ranks), against each other, the JAX package's float64
+   values and numpy oracles; and a ``config.profile_dir`` trace of a solve
+   on the card (see phase_examples).
 
 Each phase prints one JSON line (the sector and XOR-dense engines'
 records also one ``{"engines": [...]}`` line), with the device memory peak
@@ -131,6 +138,10 @@ times the XOR-dense engine at every split La (see xor_dense_la_sweep).
 runs the environment, the general phase and the general routes over
 virtual ranks alone (see phase_general, phase_general_sharded).
 
+    python3 chip_smoke.py --examples
+
+runs the environment and the examples phase alone (see phase_examples).
+
     python3 chip_smoke.py --diagonal [TREE ...]
 
 times the diagonal kernel per call and alone on localized(24),
@@ -155,6 +166,8 @@ XOR_DENSE_LA = '--xor-dense-la'
 GENERAL_ONLY = '--general'
 DIAGONAL = '--diagonal'
 CHILD_DIAGONAL = '--child-diagonal'
+CHILD_EXAMPLE = '--child-example'
+EXAMPLES_ONLY = '--examples'
 
 # error bounds of the kernel against its plain version: max|dy| / max|y|.
 # Both sum the same terms in float arithmetic of the working type but in
@@ -2485,6 +2498,300 @@ def spawn_distributed(world, full, xp_eval0=0.0):
     return rec
 
 
+EXAMPLE_SCRIPTS = {'floquet': 'floquet/run_floquet.py',
+                   'kagome': 'kagome/run_kagome.py',
+                   'mbl': 'mbl/run_mbl.py',
+                   'syk': 'syk/run_syk.py',
+                   'sharded': 'sharded_spinconserve/run_sharded_torch.py'}
+# phase examples: the floquet runs against each other and against the JAX
+# package's float64 lines (tests/torch_examples_reference.py), the mbl
+# target line against numpy.linalg.eigh, kagome '24''s E0 against the JAX
+# package's float64 value (printed to 12 decimals)
+EXAMPLE_TOL = 1e-10
+MBL_TOL = 1e-8
+KAGOME_TOL = 1e-9
+
+
+def _arg(args, flag, default=None):
+    return args[args.index(flag) + 1] if flag in args else default
+
+
+def child_example(name, args):
+    """``chip_smoke.py --child-example NAME ARGS...``: one example script
+    on the card in this fresh process (the scripts set the port's
+    globals): the JAX package's script through the package switch
+    (``dynamite_tpu_torch.switch.run_script``), or the port's own
+    ``run_sharded_torch.py`` (its ``main``). Emits one JSON line: the
+    script's output lines, the launch counters (0 at the start), the
+    device peak, the RuntimeWarnings caught, whether ``jax`` was imported,
+    and for mbl the last solve's stats (the target solve), the numpy
+    oracle of its energy point 0.5 line and the ms of one apply of its
+    Hamiltonian on both routes (:func:`_mbl_apply_ms`)."""
+    require_card_and_port()
+    import contextlib
+    import importlib.util
+    import io
+    import warnings
+    import torch
+    from dynamite_tpu_torch import computations, switch
+    from dynamite_tpu_torch.ops.ell import ell_apply
+    from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded,
+                                                  xor_diagonal)
+
+    path = os.path.join(REPO, 'examples', 'scripts', EXAMPLE_SCRIPTS[name])
+    if name == 'mbl':
+        # SpinConserve pairs through the ELL kernel, one launch an apply:
+        # mid-spectrum MINRES at L=14 takes ~500,000 applies, and the
+        # sector engine (the script's default route) is launch-bound at
+        # this size, ~70x the ELL kernel's time an apply (recorded in
+        # apply_ms): the script would take ~15 min
+        from dynamite_tpu_torch import config
+        config.use_sector = False
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    result = None
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught, \
+            contextlib.redirect_stdout(buf):
+        warnings.simplefilter('always')
+        if name == 'sharded':
+            spec = importlib.util.spec_from_file_location('run_sharded_torch',
+                                                          path)
+            script = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(script)
+            result = script.main(args)
+        else:
+            switch.run_script(path, args)
+    torch.cuda.synchronize()
+    rec = {'example': name, 'args': args,
+           'seconds': time.perf_counter() - t0,
+           'lines': buf.getvalue().splitlines(),
+           'launches': {'xor_apply': xor_apply_sharded.launches,
+                        'xor_diagonal': xor_diagonal.launches,
+                        'ell_apply': ell_apply.launches},
+           'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+           'runtime_warnings': [str(w.message) for w in caught
+                                if issubclass(w.category, RuntimeWarning)],
+           'jax_imported': 'jax' in sys.modules,
+           'result': result}
+    if name == 'mbl':
+        stats = computations.last_solve_stats
+        rec['target_solve'] = {
+            k: stats.get(k) for k in (
+                'minres_solves', 'minres_iterations', 'minres_max_iterations',
+                'minres_max_rel_residual', 'minres_unconverged', 'matvecs',
+                'candidates_s', 'extract_s')}
+        from tests.torch_examples_reference import mbl_line
+        L, seed = int(_arg(args, '-L')), int(_arg(args, '--seed'), 0)
+        rec['eigh_line'] = mbl_line(L, seed, int(_arg(args, '--nev', 8)))
+        rec['apply_ms'] = _mbl_apply_ms(L, seed)
+    emit(rec)
+
+
+def _mbl_apply_ms(L, seed, reps=200):
+    """ms of one warm apply of the MBL example's Hamiltonian (``-L L --seed
+    seed``, float64) on the card by the sector engine, the script's
+    default route, and by the ELL kernel, the route phase ``examples``
+    runs it through (CUDA events over ``reps`` applies after 3)."""
+    import torch
+    from dynamite_tpu_torch import config
+    from tests.torch_examples_reference import mbl_hamiltonian
+    out = {}
+    for route, use_sector in (('sector', True), ('ell', False)):
+        config.use_sector = use_sector
+        H = mbl_hamiltonian(L, seed)
+        kernel = H.get_mat(subspaces=(H.subspace, H.subspace))
+        if kernel.engine != route:
+            raise RuntimeError(f'mbl L={L}: the {kernel.engine} route, not '
+                               f'{route}')
+        x = torch.randn((2, H.subspace.get_dimension()),
+                        dtype=config.real_dtype, device=config.device)
+        for _ in range(3):
+            kernel.apply(x)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            kernel.apply(x)
+        end.record()
+        torch.cuda.synchronize()
+        out[route] = start.elapsed_time(end) / reps
+    return out
+
+
+def run_example(name, *args, timeout=900):
+    """:func:`child_example` in a child process; returns its record."""
+    import torch
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), CHILD_EXAMPLE, name,
+         *map(str, args)],
+        capture_output=True, text=True, timeout=timeout, cwd=REPO)
+    sys.stderr.write(proc.stderr[-3000:])
+    if proc.returncode != 0:
+        raise RuntimeError(f'example {name} {list(args)} failed (exit code '
+                           f'{proc.returncode})')
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _numbers(lines):
+    """The numbers of an example's CSV rows (header lines left out)."""
+    import numpy as np
+    return np.array([line.split(',') for line in lines
+                     if line and not line[0].isalpha()], dtype=float)
+
+
+def _check(ok, what, recs):
+    if not ok:
+        emit({'phase': 'examples', 'runs': recs})
+        raise RuntimeError(f'phase examples: {what}')
+
+
+def phase_examples():
+    """The JAX package's example scripts on the card through the package
+    switch, and the port of the sharded one, each in its own process
+    (:func:`child_example`), at the scripts' default sizes or more:
+
+    * floquet at L=24 (Full(24), float64): 6 cycles with a checkpoint every
+      3 into a temporary directory, resumed to 9, against an uninterrupted
+      9-cycle run (1e-10), through the XOR kernel and the diagonal stream
+      (launches > 0); and at L=16 against the JAX package's float64 lines
+      (``tests/torch_examples_reference.py``, 1e-10);
+    * kagome '24' (XParity(SpinConserve(24, 12)), dim 1,352,078): E0
+      against the JAX package's float64 value (1e-9);
+    * mbl at L=14 (dim 3,432), seed 7, through the ELL kernel: every inner
+      MINRES solve of the target solve converged, no RuntimeWarning, the
+      energy point 0.5 line against numpy.linalg.eigh (1e-8); with the ms
+      of one apply by the sector engine, the script's default route;
+    * syk at N=32: C finite, the Majoranas' Parity pairs through the XOR
+      kernel (launches > 0);
+    * run_sharded_torch.py at L=30 (SpinConserve(30, 15), dim 155,117,520)
+      over 4 virtual ranks through the alpha ring: the exact Neel column
+      and the product against the one-device sector engine's (its tables
+      from the ring's sector plan);
+    * the profiler: eigsolve(localized(20)) on Full(20) with
+      ``config.profile_dir`` set leaves a trace naming ``xor_apply_kernel``.
+
+    The runs go in three lanes at once (floquet and kagome; mbl; the
+    sharded example and syk), each lane's runs one after another: mbl's
+    solve is bound by the host's launches and syncs, the sharded
+    example's by its host plan build, so the lanes share the card and
+    the host's cores. A run's seconds therefore include its share of
+    both. No run is timed for a kernel. Returns the phase's record."""
+    import glob
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from tests.torch_examples_reference import FLOQUET_L16, KAGOME_24_E0
+
+    def lane_floquet_kagome():
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = [run_example('floquet', '-L', 24, '--n-cycles', 9),
+                    run_example('floquet', '-L', 24, '--n-cycles', 6,
+                                '--checkpoint-every', 3,
+                                '--checkpoint-path', tmp),
+                    run_example('floquet', '-L', 24, '--n-cycles', 9,
+                                '--checkpoint-every', 3,
+                                '--checkpoint-path', tmp)]
+        return runs + [run_example('floquet', '-L', 16, '--n-cycles', 3),
+                       run_example('kagome', '24')]
+
+    def lane_mbl():
+        return [run_example('mbl', '-L', 14, '--iters', 1, '--h-points', 1,
+                            '--energy-points', 3, '--seed', 7)]
+
+    def lane_sharded_syk():
+        # the script itself raises unless it took the alpha ring, its Neel
+        # column is exact (1e-6), its product is the one-device engine's
+        # (1e-5) and its Ritz values are finite
+        return [run_example('sharded', '-L', 30, '--virtual', 4, '-m', 2,
+                            '--vs-one-device'),
+                run_example('syk', '-N', 32, '-b', 0.5, '-t', 0.5,
+                            '--seed', 5)]
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        lanes = [pool.submit(f) for f in (lane_floquet_kagome, lane_mbl,
+                                          lane_sharded_syk)]
+    runs = [rec for lane in lanes for rec in lane.result()]
+    lanes_s = time.perf_counter() - t0
+    recs = [{k: v for k, v in rec.items() if k != 'lines'} for rec in runs]
+    whole, part, resumed, fl16, kagome, mbl, _sharded, syk = runs
+    for rec in runs:
+        _check(not rec['jax_imported'], f"{rec['example']} imported jax",
+               recs)
+
+    want = _numbers(whole['lines'])
+    got = np.concatenate([_numbers(part['lines']),
+                          _numbers(resumed['lines'])])
+    err = float(np.max(np.abs(got - want))) if got.shape == want.shape \
+        else float('inf')
+    recs[2]['resume_max_abs_err'] = err
+    _check(err <= EXAMPLE_TOL and want.shape == (10, 27),
+           f'floquet L=24 resumed {err:.3e} from the uninterrupted run',
+           recs)
+    for rec in (whole, part, resumed):
+        _check(rec['launches']['xor_apply'] > 0
+               and rec['launches']['xor_diagonal'] > 0,
+               'floquet launched no XOR or diagonal kernel', recs)
+
+    err = float(np.max(np.abs(_numbers(fl16['lines'])
+                              - _numbers(FLOQUET_L16.splitlines()))))
+    recs[3]['vs_jax_max_abs_err'] = err
+    _check(err <= EXAMPLE_TOL, f'floquet L=16 {err:.3e} from the JAX '
+           "package's lines", recs)
+
+    e0 = next(float(line.split()[2]) for line in kagome['lines']
+              if line.startswith('E0 = '))
+    err = abs(e0 - KAGOME_24_E0)
+    recs[4]['e0_vs_jax_abs_err'] = err
+    _check(err <= KAGOME_TOL, f'kagome 24: E0 {e0!r} off by {err:.3e}', recs)
+
+    line = next(line for line in mbl['lines'] if ', 0.5, ' in line)
+    got = [float(x) for x in line.split(',')[2:]]
+    err = float(np.max(np.abs(np.subtract(got, mbl['eigh_line']))))
+    stats = mbl['target_solve']
+    recs[5]['vs_eigh_max_abs_err'] = err
+    _check(err <= MBL_TOL and stats['minres_unconverged'] == 0
+           and not mbl['runtime_warnings']
+           and mbl['launches']['ell_apply'] > 0,
+           f'mbl L=14: {err:.3e} from eigh, {stats["minres_unconverged"]} '
+           f'inner solves unconverged, warnings {mbl["runtime_warnings"]}',
+           recs)
+
+    c = _numbers(syk['lines'])[:, 2]
+    _check(c.size == 1 and np.isfinite(c).all()
+           and syk['launches']['xor_apply'] > 0,
+           f'syk N=32: C {c}, launches {syk["launches"]}', recs)
+
+    # the profiler: the trace of a solve on the card names the kernel
+    from dynamite_tpu_torch import config, models
+    from dynamite_tpu_torch.subspaces import Full
+    H = models.localized(20)
+    H.add_subspace(Full(20))
+    with tempfile.TemporaryDirectory() as tmp:
+        config.profile_dir = tmp
+        try:
+            H.eigsolve(nev=1)
+        finally:
+            config.profile_dir = None
+        traces = glob.glob(os.path.join(tmp, 'eigsolve_rank0.*.json'))
+        names = set()
+        for path in traces:
+            with open(path) as f:
+                names.update(e.get('name', '')
+                             for e in json.load(f)['traceEvents'])
+    profile = {'traces': len(traces),
+               'kernel_events': sorted(n for n in names if 'xor_' in n)}
+    _check(len(traces) == 1
+           and any('xor_apply_kernel' in n for n in names),
+           f'the profiler trace: {profile}', recs)
+    out = {'phase': 'examples', 'runs': recs, 'lanes_s': lanes_s,
+           'profile': profile}
+    emit(out)
+    return out
+
+
 def group_costs(L=24):
     """``python3 chip_smoke.py --group-costs``: what one mask group costs
     the matvec kernel, by where its partner rows lie. Each set is a Full(L)
@@ -3367,6 +3674,7 @@ def main():
     torch.cuda.empty_cache()
     dist_recs = run(phase_distributed, xp_eval0)
     dist_rec = dist_recs[0]
+    run(phase_examples)
     emit({'phase_seconds': seconds,
           'total_s': time.perf_counter() - t_start})
     # the sharded ELL route's launches on the main path: the evolve over
@@ -3505,5 +3813,11 @@ if __name__ == '__main__':
         diagonal_times(sys.argv[2:])
     elif sys.argv[1:2] == [CHILD_DIAGONAL]:
         child_diagonal(sys.argv[2])
+    elif sys.argv[1:] == [EXAMPLES_ONLY]:
+        require_card_and_port()
+        phase_env()
+        phase_examples()
+    elif sys.argv[1:2] == [CHILD_EXAMPLE]:
+        child_example(sys.argv[2], sys.argv[3:])
     else:
         main()

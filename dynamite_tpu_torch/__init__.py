@@ -16,7 +16,9 @@ The public API keeps the JAX package's module layout:
   Auto, XParity
 * :mod:`dynamite_tpu_torch.computations` — evolve, eigsolve
 * ``dynamite_tpu_torch.config`` — global defaults (L, subspace, precision,
-  device, use_ell, ell_budget)
+  device, use_ell, ell_budget, profile_dir)
+* :mod:`dynamite_tpu_torch.switch` — runs a script written for
+  ``dynamite_tpu`` on this package, unchanged
 
 State vectors are ``(2, dim)`` real tensors (re/im planes), the JAX
 package's layout, so the Krylov code and the tests compare like with like.
@@ -52,6 +54,11 @@ class _Config:
         # or all-gathers it (False); None: the ring once a gathered input
         # would take more than ops/apply.py's RING_GENERAL_BYTES
         self.sharded_ring_general = None
+        # when set to a directory path, evolve()/eigsolve() are wrapped in
+        # torch.profiler traces written there (Chrome/TensorBoard-loadable;
+        # computations._maybe_profile); the -log_view analog's counters are
+        # always collected in computations.last_solve_stats
+        self.profile_dir = None
 
     # -- one-shot initialization ------------------------------------------
 

@@ -13,6 +13,7 @@ same ``last_solve_stats``.
 """
 
 import time
+import warnings
 from contextlib import contextmanager
 
 import numpy as np
@@ -33,6 +34,32 @@ DEFAULT_NCV_EVOLVE = 30
 #: diagnostics. Keys: phase wall times (``*_s``), solver counters
 #: (substeps, matvecs, host_syncs, restarts).
 last_solve_stats = {}
+
+
+@contextmanager
+def _maybe_profile(name):
+    """Wrap a solve in a torch.profiler trace when ``config.profile_dir`` is
+    set: CPU activity, and the card's when ``config.device`` is CUDA; one
+    Chrome/TensorBoard trace per call, ``{name}_rank{r}.{ns}.pt.trace.json``
+    in that directory (so ranks never overwrite each other). With it unset
+    nothing is imported or written.
+
+    A user feature, not a measurement: the profiler's own cost is in the
+    solve's times, and it can drop kernel launches from its record."""
+    profile_dir = config.profile_dir
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    from .parallel import multihost
+    activities = [ProfilerActivity.CPU]
+    if config.device.type == 'cuda':
+        activities.append(ProfilerActivity.CUDA)
+    handler = tensorboard_trace_handler(
+        profile_dir, worker_name=f'{name}_rank{multihost.rank()}')
+    with profile(activities=activities, on_trace_ready=handler):
+        yield
 
 
 @contextmanager
@@ -92,7 +119,7 @@ def evolve(H, state, t, result=None, tol=None, ncv=None, algo=None,
     with _phase(stats, 'norm_s'):
         anorm = H.infinity_norm(subspaces=(state.subspace, state.subspace))
 
-    with _phase(stats, 'solve_s'):
+    with _maybe_profile('evolve'), _phase(stats, 'solve_s'):
         result.data = expmv(kops, state.data, -1j * t, anorm, ncv=ncv,
                             tol=tol, max_its=max_its, stats=stats)
     result.set_initialized()
@@ -113,9 +140,11 @@ def eigsolve(H, getvecs=False, nev=1, which='lowest', target=None, tol=None,
     For interior eigenvalues (``target=``), ``target_method`` selects the
     matrix-free strategy: 'shift_invert' (default: Lanczos on
     (H-target)^{-1}, each apply an inner MINRES solve bounded by
-    ``inner_its`` and ``inner_tol``) or 'fold' (Lanczos on (H-target)^2, no
-    inner solve but a squared condition number). See
-    :func:`_eigsolve_target`.
+    ``inner_its``, default :func:`default_inner_its`, and ``inner_tol``,
+    default 1e-10 in double precision and 1e-5 in single; a
+    ``RuntimeWarning`` names any inner solve that stops above
+    ``inner_tol``) or 'fold' (Lanczos on (H-target)^2, no inner solve but a
+    squared condition number). See :func:`_eigsolve_target`.
     """
     H.establish_L()
 
@@ -127,7 +156,6 @@ def eigsolve(H, getvecs=False, nev=1, which='lowest', target=None, tol=None,
     config._initialize()
 
     if which in ('smallest', 'largest'):
-        import warnings
         warnings.warn('values "smallest" and "largest" for eigsolve '
                       'parameter "which" are deprecated, and have been '
                       'replaced by "lowest" and "highest" respectively.',
@@ -158,7 +186,7 @@ def eigsolve(H, getvecs=False, nev=1, which='lowest', target=None, tol=None,
     kops = kernel.krylov_ops(ncv)
 
     stats = {}
-    with _phase(stats, 'solve_s'):
+    with _maybe_profile('eigsolve'), _phase(stats, 'solve_s'):
         evals, S, V = eigsolve_trlanczos(
             kops, dim, dtype, device, nev=nev, which=which, tol=tol,
             max_restarts=max_its, stats=stats)
@@ -243,12 +271,29 @@ def _target_stats(method, outer, inner, extract):
         'minres_iterations': minres_its,
         'minres_max_iterations': inner.get('max_iterations', 0),
         'minres_max_rel_residual': inner.get('max_rel_residual'),
+        'minres_unconverged': inner.get('unconverged', 0),
         'extract_applies': extract.get('applies', 0),
         'matvecs': (minres_its if method == 'shift_invert'
                     else outer_applies) + extract.get('applies', 0),
         'host_syncs': (outer.get('host_syncs', 0) + inner.get('host_syncs', 0)
                        + extract.get('host_syncs', 0)),
     }
+
+
+def default_inner_its(dim):
+    """The default cap on each inner MINRES solve: 10 dim iterations.
+
+    Mid-spectrum, the shifted operator's condition number grows with the
+    dimension (the level spacing shrinks as 1/dim), and so do the
+    iterations MINRES needs. For the MBL example's Hamiltonian (seed 7) at
+    the middle of its spectrum, float64, the default inner_tol, one solve
+    from a random right-hand side took 2.0, 2.5, 3.0 and 3.3 dim at L=10,
+    12, 14 and 16 (dim 252 to 12,870), and its eigsolve's largest solve
+    3.0 dim at L=14 (10,402 iterations); localized(12) 2.5 dim. The JAX
+    package's min(2 dim, 2000) stops those solves short, and the outer
+    Lanczos then converges to wrong levels (ROADMAP.md queue 3). A solve
+    that still stops at the cap makes eigsolve warn."""
+    return 10 * dim
 
 
 def _target_candidates_shift_invert(H, dim, nev_f, target, tol, max_its,
@@ -260,9 +305,7 @@ def _target_candidates_shift_invert(H, dim, nev_f, target, tol, max_its,
     MINRES solve per outer apply. ``outer`` and ``inner`` collect the
     Lanczos and MINRES counters."""
     if inner_its is None:
-        # the JAX package's default cap; mid-spectrum at large dimension it
-        # returns an inexact inverse (ROADMAP.md queue 3)
-        inner_its = min(2 * dim, 2000)
+        inner_its = default_inner_its(dim)
     if inner_tol is None:
         inner_tol = 1e-10 if dtype == torch.float64 else 1e-5
     # the outer residual tolerance lives on the (H-target)^{-1} eigenvalue
@@ -277,6 +320,14 @@ def _target_candidates_shift_invert(H, dim, nev_f, target, tol, max_its,
     _theta, S, V = eigsolve_trlanczos(
         KrylovOps(inverse_apply, ncv), dim, dtype, device, nev=nev_f,
         which='exterior', tol=outer_tol, max_restarts=max_its, stats=outer)
+    if inner['unconverged']:
+        warnings.warn(
+            f"eigsolve(target={target}): {inner['unconverged']} of "
+            f"{inner['solves']} inner MINRES solves stopped above "
+            f'inner_tol={inner_tol:g} (largest relative residual '
+            f"{inner['max_rel_residual']:.3g}) at inner_its={inner_its}; "
+            'the interior eigenvalues may be wrong: raise inner_its',
+            RuntimeWarning, stacklevel=4)
     return _ritz_states(H, subspace, S, V)
 
 

@@ -43,6 +43,8 @@ MSC's masks never touch the top spin, so only the t=0 sectors — exactly
 the XParity representatives — participate).
 """
 
+import copy
+
 import numpy as np
 import torch
 
@@ -115,9 +117,10 @@ def table_bytes_estimate(plan, left, right, world=None):
     """Pre-build upper bound on device table memory. One device (``world``
     None): the matrices and the diagonal, the budget gate of the sector
     engine and of the alpha ring (the JAX package's count). Over ``world``
-    ranks: the alpha ring's (:mod:`.sector_shard`), summed over the ranks:
-    every rank holds its output-alpha rows of each M, padded to (w_o, world
-    w_i) with w = ceil(na / world), its diagonal in the alpha layout, its
+    ranks (one included): the alpha ring's (:mod:`.sector_shard`), summed
+    over the ranks: every rank holds its output-alpha rows of each M,
+    padded to (w_o, world w_i) with w = ceil(na / world), the M counted by
+    :func:`_ring_matrix_entries`, its diagonal in the alpha layout, its
     slice of each row scale ca, and a copy of each N matrix, row scale W
     and gather bidx (int64); W, bidx and ca are counted at most
     (popcount(mr) + 1) per (mr, top bit, sign part) and output sector."""
@@ -153,19 +156,62 @@ def table_bytes_estimate(plan, left, right, world=None):
                     signs & ((1 << lay.La) - 1)))
     # matrices are deduplicated by content across sectors: low matrices
     # and cross matrices depend only on the low-half weight(s), so count
-    # unique na values, not per-sector copies; high (row) matrices are
-    # genuinely per sector pair (internal + two boundary families)
-    una = np.unique(P * w)
-    low = int(np.sum(una ** 2))
+    # unique na values, not per-sector copies (the JAX package's count; the
+    # build shares no matrix between ka and La - ka, whose na agree, so
+    # over ranks _ring_matrix_entries counts by ka); high (row)
+    # matrices are genuinely per sector pair (internal + two boundary
+    # families)
     high = P * 3 * int(np.sum(nb ** 2))
-    cross = 2 * len(cross_mrs) * int(np.sum(una ** 2))
     diag = (2 if diag_imag else 1) * int(np.sum(nb * P * w))
-    total = cb * (low + high + cross + diag)
+    if world is None:
+        una = np.unique(na)
+        mats = (1 + 2 * len(cross_mrs)) * int(np.sum(una ** 2))
+    else:
+        mats = _ring_matrix_entries(plan, lbase.L, lay, secs, P)
+    total = cb * (mats + high + diag)
     if world is not None:
         per_so = lambda keys: sum(bin(mr).count('1') + 1
                                   for mr, _t, _s in keys)
         total += P * int(np.sum(nb)) * per_so(col_vecs) * (8 + cb)
         total += P * int(np.sum(w)) * per_so(row_vecs) * cb
+    return total
+
+
+def _ring_matrix_entries(plan, L, lay, secs, P):
+    """Entries of the column matrices M the alpha ring holds, summed over
+    ``P`` ranks, a bound from the plan's groups alone: the build keys a
+    matrix by (mask's high part mr, top bit mt, row-sign part s_r) and
+    shares it by content between sectors of one (ka_o, ka_i) (and top bit
+    of the output, where a sign reaches it). So each family (mr, mt) holds
+    at most one (P w_o, P w_i) matrix per sign part (parts that differ
+    only inside a one-bit mr merge: their row scales agree up to sign),
+    per output (t, ka_o), per ka_i its masks reach (ka_i - ka_o = d with
+    |d| <= popcount(ma), |d| <= popcount(mr) + mt, d of popcount(ma)'s
+    parity), and a second for an imaginary part."""
+    La, Lr = lay.La, lay.Lr
+    families = {}   # (mr, mt) -> [{d}, {s_r}, top sign, planes]
+    for m, _pm, signs, coeffs in plan.groups:
+        mt, mr, ma = _split_mask(int(m), L, La, Lr)
+        if not ma:
+            continue
+        fam = families.setdefault((mr, mt), [set(), set(), False, 1])
+        p = popcount(ma)
+        reach = min(p, popcount(mr) + mt)
+        fam[0].update(d for d in range(-reach, reach + 1) if (d - p) % 2 == 0)
+        signs = np.asarray(signs, dtype=np.int64)
+        keep = ~mr if popcount(mr) == 1 else -1
+        fam[1].update(int(v) for v in np.unique(
+            (signs >> La) & ((1 << Lr) - 1) & keep))
+        fam[2] |= bool(np.any((signs >> (L - 1)) & 1))
+        if np.any(np.abs(np.imag(coeffs)) > 0):
+            fam[3] = 2
+    padded = {int(lay.ka[s]): P * -(-int(lay.na[s]) // P) for s in secs}
+    total = 0
+    for ds, s_rs, top, planes in families.values():
+        outs = {(int(lay.t[s]) if top else 0, int(lay.ka[s])) for s in secs}
+        for _t, ka_o in outs:
+            total += planes * len(s_rs) * padded[ka_o] * sum(
+                padded.get(ka_o + d, 0) for d in ds)
     return total
 
 
@@ -436,12 +482,24 @@ class SectorPlan:
         self.diag = None
         self.diag_terms = diag_terms
         if diag_terms and with_diag:
-            dtype = torch.float64 if real_dtype == np.float64 \
-                else torch.float32
-            self.diag = diagonal_at(plan, diag_terms, torch.arange(
-                self.dim, dtype=torch.int64, device=device), dtype)
+            self.diag = self._diagonal(plan, device)
 
         self._dedup()
+
+    def _diagonal(self, plan, device):
+        dtype = torch.float64 if self.real_dtype == np.float64 \
+            else torch.float32
+        return diagonal_at(plan, self.diag_terms, torch.arange(
+            self.dim, dtype=torch.int64, device=device), dtype)
+
+    def with_diagonal(self, plan, device):
+        """This plan with its diagonal field on ``device`` (a copy sharing
+        every matrix): the one-device engine's plan from the alpha ring's,
+        built without it, with no second host build."""
+        out = copy.copy(self)
+        if self.diag_terms and self.diag is None:
+            out.diag = self._diagonal(plan, device)
+        return out
 
     def _dedup(self):
         """Share identical matrices across channels (the low matrices, for

@@ -46,7 +46,9 @@ def minres_solver(matvec, shift=0.0, maxiter=None, rtol=None, stats=None):
     stats : dict, optional
         Accumulates over the solves: ``solves``; ``iterations`` (one matvec
         each) and ``max_iterations`` (of one solve); ``host_syncs``;
-        ``max_rel_residual``, the largest phibar / beta1 at a solve's exit.
+        ``max_rel_residual``, the largest phibar / beta1 at a solve's exit;
+        ``unconverged``, the solves that exited with the residual test
+        unmet (phibar > rtol * beta1: at the cap, or on a breakdown).
 
     Each solve also adds its iterations to ``minres_solver.iterations``.
 
@@ -60,7 +62,8 @@ def minres_solver(matvec, shift=0.0, maxiter=None, rtol=None, stats=None):
         rtol = 1e-10
     if stats is None:
         stats = {}
-    for key in ('solves', 'iterations', 'max_iterations', 'host_syncs'):
+    for key in ('solves', 'iterations', 'max_iterations', 'host_syncs',
+                'unconverged'):
         stats.setdefault(key, 0)
     stats.setdefault('max_rel_residual', 0.0)
 
@@ -122,6 +125,7 @@ def minres_solver(matvec, shift=0.0, maxiter=None, rtol=None, stats=None):
         stats['iterations'] += itn
         stats['max_iterations'] = max(stats['max_iterations'], itn)
         stats['host_syncs'] += syncs
+        stats['unconverged'] += int(phibar > real(rtol) * beta1)
         if beta1 > 0:
             stats['max_rel_residual'] = max(stats['max_rel_residual'],
                                             float(phibar / beta1))

@@ -998,3 +998,45 @@ def test_xor_route_and_files_on_nccl(card, tmp_path):
         got = np.load(tmp_path / f'{name}_hv.npy')
         want = one[0] + 1j * one[1]
         assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
+
+
+SWITCH_RUNNER = """\
+import contextlib, io, json, sys
+from dynamite_tpu_torch import switch
+from dynamite_tpu_torch.ops.xor_apply import xor_apply_sharded
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    switch.run_script(sys.argv[2], sys.argv[3:], device=sys.argv[1] or None)
+print(json.dumps({'lines': buf.getvalue().splitlines(),
+                  'launches': xor_apply_sharded.launches}))
+"""
+
+
+def test_floquet_example_on_card(card):
+    """The JAX package's floquet example through the package switch on the
+    card against the same run on the CPU (float64, 1e-10), with the XOR
+    kernel launched; each run in its own process."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(repo, 'examples', 'scripts', 'floquet',
+                          'run_floquet.py')
+    recs = {}
+    for device in ('', 'cpu'):
+        proc = subprocess.run(
+            [sys.executable, '-c', SWITCH_RUNNER, device, script, '-L', '12',
+             '--n-cycles', '3'],
+            cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+            capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        recs[device] = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    def numbers(lines):
+        return np.array([line.split(',') for line in lines[1:]], dtype=float)
+
+    got, want = numbers(recs['']['lines']), numbers(recs['cpu']['lines'])
+    assert got.shape == want.shape == (4, 15)
+    assert np.max(np.abs(got - want)) < 1e-10
+    assert recs['']['launches'] > 0 and recs['cpu']['launches'] == 0

@@ -48,7 +48,7 @@ from dynamite_tpu_torch import subspaces
 from dynamite_tpu_torch.ops import ell
 from dynamite_tpu_torch.ops.apply import (OperatorKernel, VirtualTransport,
                                           _Plan, sharded_route)
-from dynamite_tpu_torch.ops.sector_apply import SectorPlan
+from dynamite_tpu_torch.ops.sector_apply import SectorPlan, table_bytes_estimate
 from dynamite_tpu_torch.ops.sector_shard import (AlphaLayout,
                                                  _canonical_coords,
                                                  _local_coords)
@@ -526,3 +526,27 @@ def test_estimate_over_ranks(name, route, world):
         for dtype in (torch.float64, torch.float32):
             assert over.sharded.total_bytes(dtype, torch.device('cpu')) \
                 == _held_bytes(over.sharded, dtype)
+
+
+@pytest.mark.parametrize('L, world', [(22, 1), (22, 4), (24, 1)])
+def test_ring_estimate_at_large_l(L, world):
+    """The alpha ring's count before the build bounds the tensors its ranks
+    then hold at the sizes where the column matrices dominate: from L=22
+    at one rank, a count that shared one matrix between the sectors of
+    equal alpha dimension (C(La, ka) = C(La, La - ka)) fell below them
+    (0.935 of them at L=22)."""
+    saved = config._L
+    config.L = L
+    try:
+        H = models.heisenberg(L)
+        sub = subspaces.SpinConserve(L, L // 2)
+        H.add_subspace(sub)
+        plan = _Plan(H._msc_on(sub), sub, sub)
+        with threadpool_limits(1):
+            over = OperatorKernel(H._msc_on(sub), sub, sub,
+                                  transport=VirtualTransport(world))
+    finally:
+        config._L = saved
+    assert over.engine == 'sector_ring'
+    est = table_bytes_estimate(plan, sub, sub, world)
+    assert est >= _held_bytes(over.sharded, config.real_dtype) > 0

@@ -17,6 +17,7 @@ against a stacked numpy Gram.
 """
 
 import gc
+import warnings
 
 import numpy as np
 import pytest
@@ -37,6 +38,8 @@ from dynamite_tpu.states import State as RefState
 from dynamite_tpu_torch import computations, config, models, subspaces
 from dynamite_tpu_torch.solvers import eigs
 from dynamite_tpu_torch.states import State
+
+from tests.torch_examples_reference import mbl_hamiltonian
 
 # One torch thread per xdist worker (ROADMAP.md queue 3).
 torch.set_num_threads(1)
@@ -304,3 +307,52 @@ def test_inner_its_passed_through():
     assert np.max(np.abs(got - nearest)) > 1e-2
     assert np.max(np.abs(want - nearest)) > 1e-2
     assert np.max(np.abs(got - want)) < 1e-3
+
+
+def _mbl(L):
+    """The MBL example's Hamiltonian at ``-L L --seed 7`` and its first
+    field strength, with the script's target for energy point 0.5."""
+    H = mbl_hamiltonian(L, 7)
+    dense = np.linalg.eigvalsh(H.to_numpy().toarray())
+    return H, dense, float(dense[0] + 0.5 * (dense[-1] - dense[0]))
+
+
+def _localized(L):
+    H = models.localized(L)
+    H.add_subspace(subspaces.SpinConserve(L, L // 2))
+    dense = np.linalg.eigvalsh(H.to_numpy().toarray())
+    return H, dense, _target(dense)
+
+
+@pytest.mark.parametrize('case, nev', [('localized', 2), ('mbl', 8)])
+def test_default_inner_cap_mid_spectrum(case, nev):
+    """ROADMAP.md queue 3's fault, repaired in the port: mid-spectrum on
+    SpinConserve(12, 6) (dim 924), float64, at the defaults, every inner
+    MINRES solve stops on inner_tol (no warning) and the levels match
+    eigvalsh to 1e-10: localized(12) at the target of the tests above, and
+    the MBL example's Hamiltonian (seed 7) at its energy point 0.5 with
+    its nev. The JAX package's cap, min(2 dim, 2000) = 1,848, is below
+    the iterations these solves take, and there the levels landed
+    1e-4 to 1e-2 off."""
+    H, dense, target = (_localized if case == 'localized' else _mbl)(12)
+    with warnings.catch_warnings():
+        warnings.simplefilter('error', RuntimeWarning)
+        got = np.sort(computations.eigsolve(H, nev=nev, target=target))
+    stats = computations.last_solve_stats
+    nearest = np.sort(dense[np.argsort(np.abs(dense - target))[:nev]])
+    dim = len(dense)
+    assert stats['minres_unconverged'] == 0
+    assert min(2 * dim, 2000) < stats['minres_max_iterations'] \
+        < computations.default_inner_its(dim)
+    assert np.max(np.abs(got - nearest)) < 1e-10
+
+
+def test_inexact_inner_solve_warns():
+    """An inner solve that stops at the cap above inner_tol makes eigsolve
+    warn, naming inner_its (test_inner_its_passed_through's solve)."""
+    H, _ = _pair('full', 8)
+    target = _target(np.linalg.eigvalsh(H.to_numpy().toarray()))
+    with pytest.warns(RuntimeWarning, match='inner_its=20'):
+        computations.eigsolve(H, nev=2, target=target, inner_its=20)
+    stats = computations.last_solve_stats
+    assert stats['minres_unconverged'] == stats['minres_solves'] > 0
