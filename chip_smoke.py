@@ -106,7 +106,18 @@ on the same sector discovered by Auto through the ELL kernel:
    port of the sharded one (``run_sharded_torch.py``, SpinConserve(30, 15)
    over 4 virtual ranks), against each other, the JAX package's float64
    values and numpy oracles; and a ``config.profile_dir`` trace of a solve
-   on the card (see phase_examples).
+   on the card (see phase_examples);
+14. ``reference_suite``: the JAX package's own test files that run
+   unchanged on the port (``tests/torch_reference_suite.py`` UNCHANGED)
+   through ``python -m dynamite_tpu_torch.switch --pytest`` on the card
+   in one child process: every test passes, one line per file, and the
+   XOR, diagonal and ELL kernels each launched (see
+   phase_reference_suite);
+15. ``tutorial``: the tutorial notebooks 1-6 through the switch's
+   ``--notebook`` mode on the card and on the CPU, each in its own
+   process, their outputs equal cell by cell
+   (``tests/torch_tutorial_reference.py``), with each run's seconds,
+   device peak and launches (see phase_tutorial).
 
 Each phase prints one JSON line (the sector and XOR-dense engines'
 records also one ``{"engines": [...]}`` line), with the device memory peak
@@ -142,6 +153,11 @@ virtual ranks alone (see phase_general, phase_general_sharded).
 
 runs the environment and the examples phase alone (see phase_examples).
 
+    python3 chip_smoke.py --reference-suite
+    python3 chip_smoke.py --tutorial
+
+run the environment and phase reference_suite, or phase tutorial, alone.
+
     python3 chip_smoke.py --diagonal [TREE ...]
 
 times the diagonal kernel per call and alone on localized(24),
@@ -168,6 +184,10 @@ DIAGONAL = '--diagonal'
 CHILD_DIAGONAL = '--child-diagonal'
 CHILD_EXAMPLE = '--child-example'
 EXAMPLES_ONLY = '--examples'
+CHILD_REFERENCE = '--child-reference-suite'
+REFERENCE_ONLY = '--reference-suite'
+CHILD_NOTEBOOK = '--child-notebook'
+TUTORIAL_ONLY = '--tutorial'
 
 # error bounds of the kernel against its plain version: max|dy| / max|y|.
 # Both sum the same terms in float arithmetic of the working type but in
@@ -2792,6 +2812,171 @@ def phase_examples():
     return out
 
 
+def _launch_counts():
+    """The hand kernels' launch counters (see the kernels line)."""
+    from dynamite_tpu_torch.ops.ell import ell_apply
+    from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded,
+                                                  xor_diagonal)
+    return {'xor_apply': xor_apply_sharded.launches,
+            'xor_diagonal': xor_diagonal.launches,
+            'ell_apply': ell_apply.launches}
+
+
+def child_reference_suite():
+    """``chip_smoke.py --child-reference-suite``: the reference's UNCHANGED
+    test files through the switch's ``--pytest`` mode on the card, in this
+    fresh process (the tests set the port's globals); the (c) exclusions
+    deselected. Prints pytest's output with the switch's line per file,
+    then the launch counters (0 at the start) as the last line; exits with
+    pytest's code."""
+    require_card_and_port()
+    from dynamite_tpu_torch import switch
+    from tests.torch_reference_suite import EXCLUDED, UNCHANGED
+    args = [os.path.join('tests', rel) for rel in UNCHANGED]
+    for nodeid in EXCLUDED:
+        args += ['--deselect', os.path.join('tests', nodeid)]
+    rc = switch.main(['--pytest', *args, '-q', '-p', 'no:randomly'])
+    emit({'launches': _launch_counts()})
+    sys.exit(rc)
+
+
+def phase_reference_suite():
+    """The JAX package's own tests on the card: every UNCHANGED file of
+    ``tests/torch_reference_suite.py``, unchanged, through the package
+    switch in one child process (:func:`child_reference_suite`). Emits one
+    line per file (collected, passed, skipped, failed, excluded, seconds)
+    and one with the hand kernels' launches during the run; fails unless
+    every test passed (passed = collected - skipped - excluded) and the
+    XOR, diagonal and ELL kernels each launched, that is the reference's
+    cases reached the kernels. Returns the phase's record."""
+    from tests.torch_reference_suite import UNCHANGED
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           CHILD_REFERENCE], capture_output=True, text=True,
+                          timeout=900, cwd=REPO)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    files = [json.loads(line) for line in lines
+             if line.startswith('{"reference_file"')]
+    for rec in files:
+        emit({'phase': 'reference_suite', **rec})
+    launches = json.loads(lines[-1])['launches'] if lines and \
+        lines[-1].startswith('{"launches"') else None
+    out = {'phase': 'reference_suite', 'files': len(files),
+           'passed': sum(r['passed'] for r in files),
+           'skipped': sum(r['skipped'] for r in files),
+           'excluded': sum(r['excluded'] for r in files),
+           'pytest_exit': proc.returncode, 'launches': launches,
+           'seconds': seconds}
+    emit(out)
+    ok = (proc.returncode == 0 and len(files) == len(UNCHANGED)
+          and all(r['failed'] == 0 and r['passed'] == r['collected']
+                  - r['skipped'] - r['excluded'] for r in files)
+          and launches is not None and all(launches.values()))
+    if not ok:
+        sys.stderr.write(proc.stdout[-12000:] + proc.stderr[-4000:])
+        raise RuntimeError(f'phase reference_suite: {out}')
+    return out
+
+
+def child_notebook(name, device):
+    """``chip_smoke.py --child-notebook NB [cpu]``: one tutorial notebook
+    through the switch's ``--notebook`` mode, on the card or on the CPU, in
+    this fresh process. Emits one JSON line: its output lines, the
+    seconds, the device peak and the launch counters (0 at the start)."""
+    require_card_and_port()
+    import contextlib
+    import io
+    import torch
+    from dynamite_tpu_torch import switch
+    card = device is None
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        switch.run_notebook(os.path.join(REPO, 'examples', 'tutorial', name),
+                            device=device)
+    if card:
+        torch.cuda.synchronize()
+    emit({'notebook': name, 'device': device or 'cuda',
+          'seconds': time.perf_counter() - t0,
+          'peak_gb': torch.cuda.max_memory_allocated() / 1e9 if card
+          else None,
+          'launches': _launch_counts(), 'jax_imported': 'jax' in sys.modules,
+          'output': buf.getvalue()})
+
+
+def run_notebook_child(name, device=None, timeout=900):
+    """:func:`child_notebook` in a child process (one thread on the CPU);
+    returns its record."""
+    args = [sys.executable, os.path.abspath(__file__), CHILD_NOTEBOOK, name]
+    env = dict(os.environ, OMP_NUM_THREADS='1') if device else None
+    proc = subprocess.run(args + ([device] if device else []),
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=REPO, env=env)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout[-3000:] + proc.stderr[-3000:])
+        raise RuntimeError(f'notebook {name} on {device or "cuda"} failed '
+                           f'(exit code {proc.returncode})')
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def start_tutorial_cpu(pool):
+    """The tutorial notebooks' CPU runs of phase tutorial, started on
+    ``pool`` (they use no card, so they run beside phase reference_suite),
+    the slowest first; returns their futures by notebook."""
+    from tests.torch_tutorial_reference import NOTEBOOKS
+    order = sorted(NOTEBOOKS, key=lambda nb: not nb.startswith('3-'))
+    return {nb: pool.submit(run_notebook_child, nb, 'cpu') for nb in order}
+
+
+def phase_tutorial(cpu_runs=None):
+    """The tutorial notebooks 1-6, unchanged, through the switch's
+    ``--notebook`` mode on the card and on the CPU, each run in its own
+    process (:func:`child_notebook`): the card's three at a time, the
+    CPU's (one thread each) from ``cpu_runs`` (:func:`start_tutorial_cpu`,
+    started here when None). Notebook 3's mid-spectrum solve (~115,000
+    MINRES iterations) is the slowest of each. The card's output must
+    equal the CPU's cell by cell as
+    ``tests/torch_tutorial_reference.py::compare`` states (text equal,
+    numbers to 1e-10 relative + 1e-9, random draws and wall times left
+    out). Emits one line per notebook: seconds on each device, the card's
+    peak and the hand kernels' launches on the card. Returns the phase's
+    record."""
+    from concurrent.futures import ThreadPoolExecutor
+    from tests.torch_tutorial_reference import NOTEBOOKS, compare
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(6) as pool:
+        if cpu_runs is None:
+            cpu_runs = start_tutorial_cpu(pool)
+        with ThreadPoolExecutor(3) as card_pool:
+            card_runs = {nb: card_pool.submit(run_notebook_child, nb)
+                         for nb in cpu_runs}
+            card_runs = {nb: f.result() for nb, f in card_runs.items()}
+        cpu_runs = {nb: f.result() for nb, f in cpu_runs.items()}
+    recs = []
+    for nb in NOTEBOOKS:
+        card, cpu = card_runs[nb], cpu_runs[nb]
+        bad = compare(card['output'], cpu['output'], nb, against_jax=False)
+        rec = {'phase': 'tutorial', 'notebook': nb,
+               'card_s': card['seconds'], 'cpu_s': cpu['seconds'],
+               'card_peak_gb': card['peak_gb'],
+               'card_launches': card['launches'],
+               'mismatches': bad[:5]}
+        emit(rec)
+        recs.append(rec)
+        if bad or card['jax_imported'] or cpu['jax_imported']:
+            raise RuntimeError(f'phase tutorial: {nb}: card against CPU '
+                               f'{bad[:5]}')
+    out = {'phase': 'tutorial', 'notebooks': len(recs),
+           'seconds': time.perf_counter() - t0,
+           'card_launches': {k: sum(r['card_launches'][k] for r in recs)
+                             for k in recs[0]['card_launches']}}
+    emit(out)
+    return out
+
+
 def group_costs(L=24):
     """``python3 chip_smoke.py --group-costs``: what one mask group costs
     the matvec kernel, by where its partner rows lie. Each set is a Full(L)
@@ -3630,6 +3815,7 @@ def general_only():
 
 def main():
     require_card_and_port()
+    from concurrent.futures import ThreadPoolExecutor
     import torch
     from dynamite_tpu_torch import config
 
@@ -3675,6 +3861,12 @@ def main():
     dist_recs = run(phase_distributed, xp_eval0)
     dist_rec = dist_recs[0]
     run(phase_examples)
+    # the tutorial's CPU runs need no card: they go beside the reference
+    # suite, after the examples' host-timed sections
+    with ThreadPoolExecutor(6) as tutorial_pool:
+        tutorial_cpu = start_tutorial_cpu(tutorial_pool)
+        run(phase_reference_suite)
+        run(phase_tutorial, tutorial_cpu)
     emit({'phase_seconds': seconds,
           'total_s': time.perf_counter() - t_start})
     # the sharded ELL route's launches on the main path: the evolve over
@@ -3819,5 +4011,17 @@ if __name__ == '__main__':
         phase_examples()
     elif sys.argv[1:2] == [CHILD_EXAMPLE]:
         child_example(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:] == [REFERENCE_ONLY]:
+        require_card_and_port()
+        phase_env()
+        phase_reference_suite()
+    elif sys.argv[1:] == [CHILD_REFERENCE]:
+        child_reference_suite()
+    elif sys.argv[1:] == [TUTORIAL_ONLY]:
+        require_card_and_port()
+        phase_env()
+        phase_tutorial()
+    elif sys.argv[1:2] == [CHILD_NOTEBOOK]:
+        child_notebook(sys.argv[2], (sys.argv[3:] or [None])[0])
     else:
         main()

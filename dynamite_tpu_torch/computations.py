@@ -22,7 +22,8 @@ import torch
 from . import config
 from .ops import msc as msc_tools
 from .solvers.eigs import eigsolve_trlanczos, ritz_vectors
-from .solvers.expmv import expmv, initial_tstep
+from .solvers.expmv import (ConvergenceError, MaxIterationsError, expmv,
+                             initial_tstep)
 from .solvers.krylov import (KrylovOps, check_workspace_fits, combine, gram,
                              host)
 from .solvers.minres import minres_solver

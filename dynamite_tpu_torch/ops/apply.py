@@ -690,6 +690,12 @@ class OperatorKernel:
         self.xor_dense = build_xor_dense(self.plan, split, ranks, world)
         self.xor_dense_info = self.xor_dense.info
 
+    def sharded_default(self):
+        """Whether the solvers' own work vectors (eigsolve's start vector)
+        are spread over ranks: over a transport of more than one rank, as
+        the JAX package's over a mesh of more than one device."""
+        return self.transport is not None and self.transport.world > 1
+
     @property
     def engine(self):
         """The route :meth:`apply` takes: 'xor', 'xor_dense', 'sector',

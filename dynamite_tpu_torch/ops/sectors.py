@@ -196,13 +196,15 @@ def states_of_popcount(nbits, kk):
 
 
 def state_to_idx(layout_, state):
-    """Vectorized sector-major rank; -1 for states outside the subspace."""
+    """Vectorized sector-major rank; -1 for states outside the subspace
+    (also those outside [0, 2^L), which the JAX package's copy ranks by
+    their low L bits)."""
     lay = layout_
     state = np.asarray(state, dtype=np.int64)
     t, hr, sa = lay.split_state(state)
     kr = popcount(hr)
     ka = popcount(sa)
-    valid = (t + kr + ka) == lay.k
+    valid = ((t + kr + ka) == lay.k) & ((state >> lay.L) == 0)
     nck = nchoosek_table(lay.L, lay.k)
     slot = np.minimum(t * (lay.Lr + 1) + kr, len(lay.off_tk) - 1)
     off = lay.off_tk[slot]

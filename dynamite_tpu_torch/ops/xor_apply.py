@@ -366,6 +366,9 @@ class ShardedXorTables:
         self.diag_src = self.hi_list.index(0) if tables.use_diag else -1
         self._device_tables = {}
         self._launch_args = {}
+        # the plain version's group factors, per (device, dtype, row0), at
+        # most PLAIN_CHUNK_ENTRIES entries in all
+        self.plain_factors = {}
 
     def on(self, device):
         """(m_lo, src_idx) tensors of the kernel's groups."""
@@ -377,31 +380,83 @@ class ShardedXorTables:
         return self._device_tables[device]
 
 
+#: Entries of the plain version's (terms, rows) sign table per chunk of
+#: rows, and the most entries of group factors one layout keeps.
+PLAIN_CHUNK_ENTRIES = 1 << 22
+
+
+def _group_factors(tables, c0, c1, row0, dtype, device):
+    """(groups, parts, c1 - c0) group factors f_g(k) = sum over the
+    group's terms, in order, of c (-1)^parity(k & s) at the global rows
+    k = row0 + [c0, c1) (the xor-fold parity): their real parts, and their
+    imaginary parts unless every coefficient is real (parts 1 or 2)."""
+    t = tables.tables
+    groups = len(tables.m_lo)
+
+    def dev(a, dt=torch.int64):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    term_group = dev(np.repeat(np.arange(groups), np.diff(t.group_start)))
+    parts = [t.term_cr] if not np.any(t.term_ci) else [t.term_cr, t.term_ci]
+    coeff = dev(np.stack(parts, 1), dtype)[:, :, None]
+    k = torch.arange(c0, c1, dtype=torch.int64, device=device) + int(row0)
+    w = (1 - 2 * parity(k & dev(t.term_s)[:, None])).to(dtype)
+    f = torch.zeros((groups, len(parts), c1 - c0), dtype=dtype,
+                    device=device)
+    return f.index_add_(0, term_group, coeff * w[:, None, :])
+
+
 def xor_apply_sharded_reference(srcs, tables, row0):
     """The plain PyTorch version of the kernel on one block: rows
     [row0, row0 + local_dim) of y = H x, where ``srcs[i]`` is the (2,
     local_dim) block of x at rows ``row0 ^ (hi_list[i] << local_bits)``
-    and ``tables`` a :class:`ShardedXorTables`. x[:, j ^ m_lo] gathers and
-    the xor-fold parity of the global row."""
+    and ``tables`` a :class:`ShardedXorTables`: each group's factor f_g
+    (:func:`_group_factors`) times x[:, j ^ m_lo], summed over the groups
+    in order (``cumsum``), in chunks of ``PLAIN_CHUNK_ENTRIES // terms``
+    rows. A row's value does not depend on the chunk or the layout.
+
+    The factors do not depend on x: the first apply to a block keeps them
+    in ``tables.plain_factors`` while all it keeps fits
+    ``PLAIN_CHUNK_ENTRIES`` (32 MB in float64), and later applies to that
+    block only gather and multiply (PERF.md gives what that saves the
+    tutorial's notebook 3 on the CPU)."""
     t = tables.tables
     n = tables.local_dim
     like = srcs[0] if srcs else torch.empty(0, dtype=torch.float64)
-    j = torch.arange(n, dtype=torch.int64, device=like.device)
-    k = j + int(row0)
-    yr = torch.zeros(n, dtype=like.dtype, device=like.device)
-    yi = torch.zeros(n, dtype=like.dtype, device=like.device)
-    for g, (m, src) in enumerate(zip(tables.m_lo, tables.src_idx)):
-        fr = torch.zeros(n, dtype=like.dtype, device=like.device)
-        fi = torch.zeros(n, dtype=like.dtype, device=like.device)
-        for i in range(t.group_start[g], t.group_start[g + 1]):
-            w = (1 - 2 * parity(k & int(t.term_s[i]))).to(like.dtype)
-            fr += float(t.term_cr[i]) * w
-            fi += float(t.term_ci[i]) * w
-        x = srcs[src]
-        xp = x[:, j ^ int(m)] if m else x
-        yr += fr * xp[0] - fi * xp[1]
-        yi += fr * xp[1] + fi * xp[0]
-    return torch.stack([yr, yi])
+    dtype, device = like.dtype, like.device
+    groups = len(tables.m_lo)
+    if not groups:
+        return torch.zeros((2, n), dtype=dtype, device=device)
+    chunk = max(1, PLAIN_CHUNK_ENTRIES // max(len(t.term_s), groups))
+    starts = range(0, n, chunk)
+    key = (str(device), dtype, int(row0))
+    kept = tables.plain_factors
+    if key not in kept and groups * 2 * n + sum(
+            f.numel() for f in kept.values()) <= PLAIN_CHUNK_ENTRIES:
+        kept[key] = torch.cat([
+            _group_factors(tables, c0, min(n, c0 + chunk), row0, dtype,
+                           device) for c0 in starts], 2)
+    # each group's source block, its real and imaginary rows
+    rows = 2 * tables.src_idx[:, None].astype(np.int64) + np.arange(2)
+    x = torch.stack(srcs).reshape(-1, n).index_select(
+        0, torch.as_tensor(rows.reshape(-1), device=device))
+    x = x.view(groups, 2, n)
+    m = torch.as_tensor(tables.m_lo, dtype=torch.int64,
+                        device=device)[:, None, None]
+    out = []
+    for c0 in starts:
+        c1 = min(n, c0 + chunk)
+        f = kept[key][:, :, c0:c1] if key in kept else _group_factors(
+            tables, c0, c1, row0, dtype, device)
+        j = torch.arange(c0, c1, dtype=torch.int64, device=device)
+        xp = torch.gather(x, 2, (j ^ m).expand(groups, 2, c1 - c0))
+        if f.shape[1] == 1:
+            terms = f * xp
+        else:
+            fr, fi, xr, xi = f[:, 0], f[:, 1], xp[:, 0], xp[:, 1]
+            terms = torch.stack([fr * xr - fi * xi, fr * xi + fi * xr], 1)
+        out.append(terms.cumsum(0)[-1])
+    return torch.cat(out, 1)
 
 
 def xor_apply_reference(x, tables):

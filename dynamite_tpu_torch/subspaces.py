@@ -272,13 +272,21 @@ class SpinConserve(_ProductStateSubspace):
     def get_dimension(self):
         return int(self._nchoosek[self.k, self.L])
 
+    # The maps run in host C++ (:mod:`._native`); ``ops/sectors.py``'s
+    # numpy maps give the same integers and are the tests' oracle.
     def _state_to_idx(self, state):
-        from .ops import sectors
-        return sectors.state_to_idx(self.sector_layout, state)
+        from . import _native
+        lay = self.sector_layout
+        return _native.spinconserve_s2i(state, self.L, self.k,
+                                        self._nchoosek, lay.La, lay.off_tk,
+                                        lay.na_tk)
 
     def _idx_to_state(self, idx):
-        from .ops import sectors
-        return sectors.idx_to_state(self.sector_layout, idx)
+        from . import _native
+        lay = self.sector_layout
+        return _native.spinconserve_i2s(idx, self.L, self.k, self._nchoosek,
+                                        lay.La, lay.off, lay.t, lay.kr,
+                                        lay.ka, lay.na)
 
 
 class Explicit(_ProductStateSubspace):

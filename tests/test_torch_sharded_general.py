@@ -463,6 +463,35 @@ def test_left_out_pairs_raise(world, monkeypatch):
           'xor_dense' if world == 2 else 'ell')
 
 
+@pytest.mark.parametrize('case', ['parity_1', 'xparity_full_1',
+                                  'full_2_over_4'])
+def test_one_row_blocks(case):
+    """Blocks of one row (local_bits 0) on the XOR route: Parity(L=1) and
+    XParity(Full(1)) on one device, Full(2) over 4 virtual ranks. H x
+    equals the matrix's product to 1e-14."""
+    L, world = (2, 4) if case == 'full_2_over_4' else (1, 1)
+    config.L = L
+    if case == 'parity_1':
+        H, sub = 0.5 * ops.sigmaz(0), subspaces.Parity('odd', L=1)
+    elif case == 'xparity_full_1':
+        H, sub = 0.7 * ops.sigmax(0), subspaces.XParity(subspaces.Full(L=1),
+                                                          '-')
+    else:
+        H = (ops.sigmax(0) * ops.sigmax(1) + 0.4 * ops.sigmay(0)
+             * ops.sigmaz(1) + 0.3 * ops.sigmaz(0) + 0.2 * ops.sigmax(1))
+        sub = subspaces.Full(L=2)
+    H.add_subspace(sub)
+    k = OperatorKernel(H._msc_on(sub), sub, sub,
+                       transport=VirtualTransport(world) if world > 1
+                       else None)
+    assert k.engine == 'xor'
+    dim = sub.get_dimension()
+    x = _planes(dim, seed=1)
+    got = k.apply(_padded(x, world))[:, :dim].numpy()
+    want = H.to_numpy() @ (x[0] + 1j * x[1])
+    assert np.max(np.abs(got[0] + 1j * got[1] - want)) <= 1e-14
+
+
 # -- memory ----------------------------------------------------------------
 
 

@@ -262,7 +262,9 @@ def _live_vectors(nbytes):
 def test_extract_holds_2n_plus_1_vectors():
     """At every H apply of the extract, the live vector storage grew by at
     most 2n + 1 vectors over what was alive before the candidates were
-    made (the candidates themselves included), n = nev + 4."""
+    made (the candidates themselves included), n = nev + 4. The operator's
+    own tables, which its first apply builds (on the CPU the plain XOR
+    version's group factors), are alive before."""
     L_mem = 10
     H, _ = _pair('full', L_mem)
     kernel = H.get_mat()
@@ -270,6 +272,7 @@ def test_extract_holds_2n_plus_1_vectors():
     nbytes = 2 * dim * 8
     nev = 2
     n = nev + 4
+    kernel.apply(torch.zeros((2, dim), dtype=torch.float64))
     apply = kernel.apply
     peaks = []
 
@@ -324,20 +327,25 @@ def _localized(L):
     return H, dense, _target(dense)
 
 
-@pytest.mark.parametrize('case, nev', [('localized', 2), ('mbl', 8)])
+@pytest.mark.parametrize('case, nev', [('localized', 2), ('mbl', 3)])
 def test_default_inner_cap_mid_spectrum(case, nev):
     """ROADMAP.md queue 3's fault, repaired in the port: mid-spectrum on
-    SpinConserve(12, 6) (dim 924), float64, at the defaults, every inner
-    MINRES solve stops on inner_tol (no warning) and the levels match
-    eigvalsh to 1e-10: localized(12) at the target of the tests above, and
+    SpinConserve(10, 5) (dim 252), float64, at the default inner cap, every
+    inner MINRES solve stops on inner_tol (no warning) and the levels match
+    eigvalsh to 1e-10: localized(10) at the target of the tests above, and
     the MBL example's Hamiltonian (seed 7) at its energy point 0.5 with
-    its nev. The JAX package's cap, min(2 dim, 2000) = 1,848, is below
-    the iterations these solves take, and there the levels landed
-    1e-4 to 1e-2 off."""
-    H, dense, target = (_localized if case == 'localized' else _mbl)(12)
+    nev 3 (test_torch_examples.py's). inner_tol is 1e-13, tighter than the
+    default, so that the solves need 538 and 620 iterations where the JAX
+    package's cap,
+    min(2 dim, 2000), is 504: with that cap they stop above inner_tol
+    (the port warns) and this test fails. (At L=12 the levels themselves
+    land 1e-4 to 1e-2 off with that cap; this size keeps the test under
+    30 s.)"""
+    H, dense, target = (_localized if case == 'localized' else _mbl)(10)
     with warnings.catch_warnings():
         warnings.simplefilter('error', RuntimeWarning)
-        got = np.sort(computations.eigsolve(H, nev=nev, target=target))
+        got = np.sort(computations.eigsolve(H, nev=nev, target=target,
+                                            inner_tol=1e-13))
     stats = computations.last_solve_stats
     nearest = np.sort(dense[np.argsort(np.abs(dense - target))[:nev]])
     dim = len(dense)
