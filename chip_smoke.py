@@ -100,20 +100,30 @@ on the same sector discovered by Auto through the ELL kernel:
    two ranks or more SpinConserve(26, 13) through ELL; with three GPUs or
    more a second spawn at world 3 runs the general pairs on the padded
    layout (see distributed_general);
-13. ``examples``: the JAX package's example scripts (floquet at L=24 with
+13. ``multinode``: with two cards or more, the world-2 or world-4 part of
+   phase 12 again on two nodes emulated on this host (2 x 1 or 2 x 2
+   cards): each node its own ``CUDA_VISIBLE_DEVICES`` block, local ranks,
+   ``NCCL_HOSTID``, working directory and ``TMPDIR``, the state file in a
+   directory both share, each rank started by ``multihost.initialize()``
+   from SLURM's srun variables alone; NCCL's log must show two nodes,
+   NET/Socket between them and P2P inside one, every rank must launch the
+   XOR, diagonal and ELL kernels, and each λ must agree with phase 12's;
+   the transports' ms and the solves' seconds over NET/Socket beside
+   NVLink's (see phase_multinode). On one card it says it needs two;
+14. ``examples``: the JAX package's example scripts (floquet at L=24 with
    a checkpoint and a resume, and at L=16; kagome '24'; mbl at L=14; syk
    at N=32) through the package switch, each in its own process, and the
    port of the sharded one (``run_sharded_torch.py``, SpinConserve(30, 15)
    over 4 virtual ranks), against each other, the JAX package's float64
    values and numpy oracles; and a ``config.profile_dir`` trace of a solve
    on the card (see phase_examples);
-14. ``reference_suite``: the JAX package's own test files that run
+15. ``reference_suite``: the JAX package's own test files that run
    unchanged on the port (``tests/torch_reference_suite.py`` UNCHANGED)
    through ``python -m dynamite_tpu_torch.switch --pytest`` on the card
    in one child process: every test passes, one line per file, and the
    XOR, diagonal and ELL kernels each launched (see
    phase_reference_suite);
-15. ``tutorial``: the tutorial notebooks 1-6 through the switch's
+16. ``tutorial``: the tutorial notebooks 1-6 through the switch's
    ``--notebook`` mode on the card and on the CPU, each in its own
    process, their outputs equal cell by cell
    (``tests/torch_tutorial_reference.py``), with each run's seconds,
@@ -149,6 +159,11 @@ times the XOR-dense engine at every split La (see xor_dense_la_sweep).
 runs the environment, the general phase and the general routes over
 virtual ranks alone (see phase_general, phase_general_sharded).
 
+    python3 chip_smoke.py --multinode
+
+runs the environment, phase distributed at the largest power-of-two world
+of the cards and phase multinode alone (see multinode_only).
+
     python3 chip_smoke.py --examples
 
 runs the environment and the examples phase alone (see phase_examples).
@@ -168,6 +183,8 @@ compares two trees on one card (see diagonal_times).
 
 import json
 import os
+import re
+import signal
 import socket
 import subprocess
 import sys
@@ -180,6 +197,7 @@ GROUP_COSTS = '--group-costs'
 SECTOR_FORMS = '--sector-forms'
 XOR_DENSE_LA = '--xor-dense-la'
 GENERAL_ONLY = '--general'
+MULTINODE_ONLY = '--multinode'
 DIAGONAL = '--diagonal'
 CHILD_DIAGONAL = '--child-diagonal'
 CHILD_EXAMPLE = '--child-example'
@@ -2114,8 +2132,17 @@ def distributed_full(rank, world, xp_eval0):
            'eigsolve_exchanges': eig_exchange[0],
            'eigsolve_exchange_bytes': eig_exchange[1],
            'launches_all_ranks': int(every[:, 3:5].sum()),
-           'diag_builds_all_ranks': int(every[:, 5].sum())}
+           'launches_per_rank': every[:, 3:5].sum(1).tolist(),
+           'diag_builds_all_ranks': int(every[:, 5].sum()),
+           'diag_builds_per_rank': every[:, 5].tolist()}
     if world >= 2:
+        # the pairwise exchange alone, as a matvec posts it (CUDA events)
+        kernel = H.get_mat()
+        layout = kernel.tables.for_layout(psi.data.shape[1].bit_length() - 1)
+        bufs = kernel._recv_bufs_for(psi.data, layout)
+        out['exchange_ms'] = cuda_ms(lambda: exchange(psi.data, layout,
+                                                      bufs))
+        out['exchange_partners'] = sum(1 for m in layout.hi_list if m)
         x_all = multihost.gather_rows(psi.data)
         y_all = multihost.gather_rows(H.dot(psi).data)
         if rank == 0:
@@ -2432,30 +2459,50 @@ def child_distributed(rank, world, port, full=1, xp_eval0=None):
     """One rank of the distributed phase: NCCL, one GPU per rank, float32.
     With ``full``, evolve and eigsolve of localized(24) on Full(24) through
     the XOR route (:func:`distributed_full`); then the general pairs
-    (:func:`distributed_general`)."""
+    (:func:`distributed_general`). With ``port`` 0, a rank of an emulated
+    node (phase ``multinode``): ``multihost.initialize()`` with no
+    arguments, so the launcher's environment that :func:`spawn_distributed`
+    set starts the group."""
     require_card_and_port()
+    import faulthandler
     import torch
     import torch.distributed as dist
     from dynamite_tpu_torch import config
     from dynamite_tpu_torch.parallel import multihost
 
+    faulthandler.enable()  # stacks on SIGABRT, when the parent times out
     config.precision = 'single'
-    multihost.initialize(rank=rank, world_size=world,
-                         init_method=f'tcp://localhost:{port}')
+    if port:
+        multihost.initialize(rank=rank, world_size=world,
+                             init_method=f'tcp://localhost:{port}')
+    else:
+        multihost.initialize()
+    if (multihost.rank(), multihost.world_size()) != (rank, world):
+        raise RuntimeError(f'rank {rank} of {world} started as '
+                           f'{multihost.rank()} of {multihost.world_size()}')
     # NCCL itself, once: the ranks' ones summed
     one = torch.ones(1, device=config.device)
     dist.all_reduce(one)
     if float(one) != world:
         raise RuntimeError(f'NCCL all_reduce gave {float(one)}, not {world}')
+    launch = multihost.detect_launch()
+    me = {'rank': rank, 'host_id': os.environ.get('NCCL_HOSTID'),
+          'launcher': None if launch is None else launch.launcher,
+          'local_rank': config.device.index,
+          'visible_devices': os.environ.get('CUDA_VISIBLE_DEVICES'),
+          'cwd': os.getcwd()}
+    ranks = [None] * world
+    dist.all_gather_object(ranks, me)
 
-    out = {'phase': 'distributed', 'backend': dist.get_backend(),
-           'world_size': world}
+    out = {'phase': 'distributed' if port else 'multinode',
+           'backend': dist.get_backend(), 'world_size': world,
+           'ranks': ranks}
     if full:
         out.update(distributed_full(rank, world, xp_eval0))
     out['general'] = distributed_general(rank, world)
     if rank == 0:
         emit(out)
-    multihost.barrier()
+    multihost.barrier('done')
     multihost.shutdown()
 
 
@@ -2463,6 +2510,21 @@ def _free_port():
     with socket.socket() as s:
         s.bind(('localhost', 0))
         return s.getsockname()[1]
+
+
+def _free_slurm_port():
+    """A port free now in 61440-65535, where jax.distributed (and
+    ``multihost.detect_launch``) put a SLURM job's coordinator, by its job
+    id: the job id is chosen to map to it."""
+    import random
+    for port in random.sample(range(SLURM_PORT_BASE, 65536), 200):
+        with socket.socket() as s:
+            try:
+                s.bind(('', port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError('no free port in 61440-65535')
 
 
 def phase_distributed(xp_eval0):
@@ -2480,25 +2542,46 @@ def phase_distributed(xp_eval0):
     return recs
 
 
-def spawn_distributed(world, full, xp_eval0=0.0):
+def spawn_distributed(world, full, xp_eval0=0.0, nodes=1):
     """Run :func:`child_distributed` on ``world`` ranks; returns rank 0's
-    record."""
+    record. With ``nodes`` = 2, the ranks are two emulated nodes of
+    ``world // 2`` cards each (:func:`multinode_env`), and each rank's
+    record gains the links NCCL logged (:func:`nccl_links`)."""
     import torch
-    port = _free_port()
+    per_node = world // nodes
+    port = _free_slurm_port() if nodes > 1 else _free_port()
     torch.cuda.empty_cache()
-    procs = []
+    procs, logs = [], []
     for rank in range(world):
-        env = dict(os.environ, LOCAL_RANK=str(rank))
-        env.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+        if nodes > 1:
+            env, cwd, log = multinode_env(rank, world, per_node, port)
+            logs.append(log)
+        else:
+            # the card: cuda:{rank % device_count}, rank's own here
+            env, cwd = dict(os.environ), None
+            env.setdefault('NCCL_SOCKET_IFNAME', 'lo')
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), CHILD_DIST,
-             str(rank), str(world), str(port), str(full), repr(xp_eval0)],
+             str(rank), str(world), str(port if nodes == 1 else 0),
+             str(full), repr(xp_eval0)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=env))
+            env=env, cwd=cwd))
+    deadline = time.monotonic() + DIST_TIMEOUT_S
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=600))
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+    except subprocess.TimeoutExpired:
+        # every rank's Python stacks (faulthandler, on SIGABRT), then out
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGABRT)
+        for rank, p in enumerate(procs):
+            err = p.communicate()[1]
+            sys.stderr.write(f'-- rank {rank} of {world}:\n{err[-20000:]}')
+        raise RuntimeError(f'distributed ranks ({world}, {nodes} node(s)) '
+                           f'did not end within {DIST_TIMEOUT_S} s')
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2510,12 +2593,208 @@ def spawn_distributed(world, full, xp_eval0=0.0):
             raise RuntimeError(f'distributed rank {rank} of {world} failed '
                                f'(exit code {p.returncode})')
     lines = outs[0][0].strip().splitlines()
-    for line in lines:
-        print(line, flush=True)
     rec = json.loads(lines[-1])
-    if rec['phase'] != 'distributed':
+    if rec['phase'] != ('distributed' if nodes == 1 else 'multinode'):
         raise RuntimeError('the distributed phase printed no record')
+    for r, log in enumerate(logs):
+        with open(log) as f:
+            rec['ranks'][r].update(nccl_links(f.read()))
+    for line in lines[:-1]:
+        print(line, flush=True)
+    emit(rec)
     return rec
+
+
+# how long the ranks of one distributed spawn may take together
+DIST_TIMEOUT_S = 420
+# phase multinode: where the emulated nodes keep their working directories
+# (git-ignored, removed after the phase), and where NCCL's log of each rank
+# goes (one file a rank, git-ignored, kept)
+NODES_DIR = os.path.join(REPO, '.smoke_nodes')
+NCCL_LOG_DIR = os.path.join(REPO, '.smoke_nccl')
+SLURM_PORT_BASE = 61440
+
+
+def multinode_env(rank, world, per_node, port):
+    """The environment, working directory and NCCL log file of ``rank`` on
+    two nodes emulated on this host: SLURM's srun variables (the job id
+    the one that maps to ``port``, the node list this host by two names),
+    the node's own ``CUDA_VISIBLE_DEVICES`` block with local ranks from 0,
+    its own ``NCCL_HOSTID``, working directory and ``TMPDIR``. NCCL takes
+    ranks of two host ids for two hosts and carries their traffic over its
+    network transport: InfiniBand off, the socket transport asked for and
+    its sockets on the loopback, so NET/Socket whatever NICs and network
+    plugins the machine has; inside a node P2P stays on."""
+    node, local = divmod(rank, per_node)
+    home = os.path.join(NODES_DIR, f'node{node}')
+    os.makedirs(os.path.join(home, 'tmp'), exist_ok=True)
+    os.makedirs(NCCL_LOG_DIR, exist_ok=True)
+    log = os.path.join(NCCL_LOG_DIR, f'rank{rank}.log')
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(('SLURM_', 'OMPI_', 'MASTER_'))
+           and k not in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK')}
+    env.update(SLURM_JOB_ID=str(port - SLURM_PORT_BASE),
+               SLURM_STEP_NODELIST='localhost,127.0.0.1',
+               SLURM_STEP_NUM_NODES='2', SLURM_NODEID=str(node),
+               SLURM_NTASKS=str(world), SLURM_PROCID=str(rank),
+               SLURM_LOCALID=str(local), TMPDIR=os.path.join(home, 'tmp'),
+               CUDA_VISIBLE_DEVICES=','.join(
+                   str(node * per_node + i) for i in range(per_node)),
+               NCCL_HOSTID=f'node{node}', NCCL_IB_DISABLE='1',
+               NCCL_NET='Socket', NCCL_SOCKET_IFNAME='lo', NCCL_DEBUG='INFO',
+               NCCL_DEBUG_SUBSYS='INIT,P2P', NCCL_DEBUG_FILE=log)
+    return env, home, log
+
+
+_NCCL_LINK = re.compile(r' \d+\[[^\]]*\] -> \d+\[[^\]]*\]'
+                        r'(?: \[(?:send|receive)\])? via (\S+)')
+_NCCL_COMM = re.compile(r'nRanks (\d+) nNodes (\d+)')
+
+
+def nccl_links(log):
+    """What a rank's ``NCCL_DEBUG=INFO`` log says of its links: the
+    transports NCCL connected it by (``NET/Socket``, ``P2P/CUMEM``, ...),
+    and (ranks, nodes) of each communicator it joined (torch adds one of
+    two ranks for the point-to-point pairs). A link line names ranks
+    within its communicator, not globally, so it does not say which node
+    a peer is on: with one card a node every link is between nodes."""
+    kinds = {'/'.join(via.split('/')[:2]) for via in _NCCL_LINK.findall(log)}
+    comms = {(int(n), int(k)) for n, k in _NCCL_COMM.findall(log)}
+    return {'transports': sorted(kinds),
+            'nccl_comms_ranks_nodes': sorted(comms)}
+
+
+# phase multinode against phase distributed: the λ of each solve within the
+# tolerance phase distributed holds its solves over ranks to against one
+# device (XPARITY_SHARDED_TOL); NCCL sums in another order over its network
+# transport, so not bitwise
+MULTINODE_EVAL_TOL = XPARITY_SHARDED_TOL
+
+
+def phase_multinode(dist_rec, xp_eval0, card):
+    """Phase distributed's main path again (:func:`distributed_full` at
+    L=24 with the XParity and syk(16) solves, the 268 MB state file and
+    ``convert_state``, then :func:`distributed_general`'s SpinConserve(24,
+    12) solves by the alpha ring and by ELL), on two nodes emulated on this
+    host (:func:`multinode_env`: 2 nodes x 2 cards on four, 2 x 1 on two),
+    each rank started by ``multihost.initialize()`` from SLURM's
+    environment alone. Checks that NCCL saw two nodes and carried the
+    traffic between them over NET/Socket (inside a node over P2P), that
+    every rank launched the XOR, diagonal and ELL kernels, and that each λ
+    agrees with ``dist_rec``'s (phase distributed at world 2 or 4, NVLink)
+    within MULTINODE_EVAL_TOL (the child holds each to phase distributed's
+    own checks, the file's CRC32 to the gathered vector's among them);
+    records the transports' ms and the solves' seconds over NET/Socket
+    beside NVLink's. Needs two cards: on one it says so and runs nothing.
+    Returns rank 0's record, or None."""
+    import shutil
+    import torch
+    n_gpus = torch.cuda.device_count()
+    if n_gpus < 2:
+        emit({'phase': 'multinode', 'ran': False,
+              'why': f'needs two cards (two emulated nodes of one card '
+                     f'each at least); this machine has {n_gpus}'})
+        return None
+    per_node = 2 if n_gpus >= 4 else 1
+    try:
+        rec = spawn_distributed(2 * per_node, full=1, xp_eval0=xp_eval0,
+                                nodes=2)
+    finally:
+        shutil.rmtree(NODES_DIR, ignore_errors=True)
+    faults = []
+    for r in rec['ranks']:
+        node = r['rank'] // per_node
+        if (r['host_id'], r['launcher'], r['local_rank']) != \
+                (f'node{node}', 'slurm', r['rank'] % per_node):
+            faults.append(f'rank {r["rank"]}: {r}')
+        # the world's communicator spans two nodes; the links are
+        # NET/Socket (between the nodes) and, with two cards a node, P2P
+        # (inside one); nothing else (SHM, or P2P between the nodes,
+        # would mean NCCL took them for one host)
+        world_nodes = {k for n, k in r['nccl_comms_ranks_nodes']
+                       if n == len(rec['ranks'])}
+        p2p = [t for t in r['transports'] if t.startswith('P2P/')]
+        if world_nodes != {2} or 'NET/Socket' not in r['transports'] or \
+                set(r['transports']) - {'NET/Socket', *p2p} or \
+                bool(p2p) != (per_node > 1):
+            faults.append(f'rank {r["rank"]} links: {r}')
+    gen = rec['general']['routes']
+    if not (min(rec['launches_per_rank']) > 0
+            and min(rec['diag_builds_per_rank']) > 0
+            and min(gen['ell']['ell_launches_per_rank']) > 0):
+        faults.append('a rank launched no XOR, diagonal or ELL kernel')
+    more, dmore = rec['xor_more'], dist_rec['xor_more']
+    pairs = {'full24': (rec['eval0'], dist_rec['eval0']),
+             'xparity_full24': (more['xparity_full24']['eval0'],
+                                dmore['xparity_full24']['eval0']),
+             'syk16': (more['syk16']['eval0'], dmore['syk16']['eval0'])}
+    for route in ('sector_ring', 'ell'):
+        pairs[f'sc24_{route}'] = (gen[route]['eval0'],
+                                  dist_rec['general']['routes'][route]
+                                  ['eval0'])
+    diffs = {k: abs(a - b) for k, (a, b) in pairs.items()}
+    if not max(diffs.values()) <= MULTINODE_EVAL_TOL:
+        faults.append(f'eigenvalues off phase distributed\'s: {diffs}')
+
+    def side(r):
+        g = r['general']['routes']
+        return {'world': r['world_size'],
+                'exchange_ms': r['exchange_ms'],
+                'all_gather_ms': g['ell']['transport_ms'],
+                'ring_pass_ms': g['sector_ring']['transport_ms'],
+                'full24_evolve_s': r['evolve_s'],
+                'full24_eigsolve_s': r['eigsolve_s'],
+                'xparity_full24_eigsolve_s':
+                    r['xor_more']['xparity_full24']['eigsolve_s'],
+                'syk16_eigsolve_s': r['xor_more']['syk16']['eigsolve_s'],
+                'state_file_save_s': r['xor_more']['state_file']['save_s'],
+                'state_file_load_s': r['xor_more']['state_file']['load_s'],
+                **{f'sc24_{k}_{q}': g[k][q] for k in ('sector_ring', 'ell')
+                   for q in ('eigsolve_s', 'evolve_s', 'apply_ms')}}
+    out = {'phase': 'multinode_vs_distributed', 'nodes': 2,
+           'ranks_per_node': per_node, 'nvidia_smi': card,
+           'ranks': rec['ranks'], 'eval0_abs_diff_vs_distributed': diffs,
+           'net_socket': side(rec), 'nvlink_distributed': side(dist_rec),
+           'launches_per_rank': rec['launches_per_rank'],
+           'diag_builds_per_rank': rec['diag_builds_per_rank'],
+           'ell_launches_per_rank': gen['ell']['ell_launches_per_rank'],
+           'state_file': rec['xor_more']['state_file']}
+    emit(out)
+    if faults:
+        raise RuntimeError('phase multinode: ' + '; '.join(faults))
+    return rec
+
+
+def multinode_only():
+    """``python3 chip_smoke.py --multinode``: the environment, the
+    one-device λ of XParity(Full(24)) the ranks' solves are held to, phase
+    distributed at the largest power-of-two world of the cards, and phase
+    multinode beside it."""
+    require_card_and_port()
+    import torch
+    from dynamite_tpu_torch import config
+    from dynamite_tpu_torch.computations import eigsolve
+    from dynamite_tpu_torch.models import localized
+    from dynamite_tpu_torch.subspaces import Full, XParity
+    config.precision = 'single'
+    config._initialize()
+    card = phase_env()
+    H = localized(24)
+    H.allow_projection = True
+    H.add_subspace(XParity(Full(L=24), '+'))
+    xp_eval0 = float(eigsolve(H, nev=1)[0])
+    del H
+    torch.cuda.empty_cache()
+    n_gpus = torch.cuda.device_count()
+    seconds = {}
+    t0 = time.perf_counter()
+    dist_rec = spawn_distributed(1 << (n_gpus.bit_length() - 1), full=1,
+                                 xp_eval0=xp_eval0)
+    seconds['phase_distributed'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_multinode(dist_rec, xp_eval0, card)
+    seconds['phase_multinode'] = time.perf_counter() - t0
+    emit({'phase_seconds': seconds})
 
 
 EXAMPLE_SCRIPTS = {'floquet': 'floquet/run_floquet.py',
@@ -3860,6 +4139,7 @@ def main():
     torch.cuda.empty_cache()
     dist_recs = run(phase_distributed, xp_eval0)
     dist_rec = dist_recs[0]
+    multinode = run(phase_multinode, dist_rec, xp_eval0, card)
     run(phase_examples)
     # the tutorial's CPU runs need no card: they go beside the reference
     # suite, after the examples' host-timed sections
@@ -3870,15 +4150,21 @@ def main():
     emit({'phase_seconds': seconds,
           'total_s': time.perf_counter() - t_start})
     # the sharded ELL route's launches on the main path: the evolve over
-    # virtual ranks, and the distributed solves over two ranks or more
-    for rec in dist_recs:
-        if rec['world_size'] > 1:
-            gen = rec['general']
-            shard_launches += gen['routes']['ell']['ell_launches_all_ranks']
-            shard_launches += gen['spinconserve_26'].get(
-                'ell_launches_all_ranks', 0)
+    # virtual ranks, and the distributed solves over two ranks or more, on
+    # one node and on two
+    over_ranks = [r for r in dist_recs + [multinode]
+                  if r is not None and r['world_size'] > 1]
+    for rec in over_ranks:
+        gen = rec['general']
+        shard_launches += gen['routes']['ell']['ell_launches_all_ranks']
+        shard_launches += gen['spinconserve_26'].get(
+            'ell_launches_all_ranks', 0)
+    xor_shard_launches = xp_shard_launches + dist_rec['launches_all_ranks']
     diag_builds = (launches['xor_diagonal'] + xp_shard_builds
                    + dist_rec['diag_builds_all_ranks'])
+    if multinode is not None:
+        xor_shard_launches += multinode['launches_all_ranks']
+        diag_builds += multinode['diag_builds_all_ranks']
     if not diag_builds > 0:
         raise RuntimeError('the main path built no diagonal stream')
 
@@ -3915,13 +4201,14 @@ def main():
     }, {
         # localized(24), float32, P = 4 virtual shards: the sum of the four
         # launches; the yardstick is the same SpMV of the whole matrix;
-        # launches those of the distributed solves and of the
-        # XParity(Full(24)) solve over 4 virtual ranks
+        # launches those of the distributed solves (one node and, on two
+        # cards or more, two emulated nodes) and of the XParity(Full(24))
+        # solve over 4 virtual ranks
         'name': 'xor_apply_sharded',
         'route': 'cuda',
         'source': 'dynamite_tpu_torch/csrc/xor_apply.cu',
         'replaces': 'dynamite_tpu/ops/pallas_apply.py:309 via :497',
-        'launches': dist_rec['launches_all_ranks'] + xp_shard_launches,
+        'launches': xor_shard_launches,
         'max_abs_err': max(r['max_abs_err'] for r in sharded_rows),
         'ms': shard_case['ms_sum_of_P'],
         'plain_ms': shard_case['plain_ms_sum_of_P'],
@@ -4001,6 +4288,8 @@ if __name__ == '__main__':
         xor_dense_la_sweep()
     elif sys.argv[1:] == [GENERAL_ONLY]:
         general_only()
+    elif sys.argv[1:] == [MULTINODE_ONLY]:
+        multinode_only()
     elif sys.argv[1:2] == [DIAGONAL]:
         diagonal_times(sys.argv[2:])
     elif sys.argv[1:2] == [CHILD_DIAGONAL]:

@@ -396,8 +396,15 @@ class Operator:
                             '<Operator from bytes>'))
 
     def save(self, filename):
-        with open(filename, 'wb') as f:
-            f.write(self.serialize())
+        """Write the serialized terms to ``filename``: rank 0 writes, and
+        every rank waits until it has (a collective: every rank calls it;
+        the file is read back where it lies, a shared filesystem across
+        hosts)."""
+        if multihost.rank() == 0:
+            with open(filename, 'wb') as f:
+                f.write(self.serialize())
+        # other ranks must not read the file before it is written
+        multihost.barrier('operator_save')
 
     @classmethod
     def load(cls, filename):

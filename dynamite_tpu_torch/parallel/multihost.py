@@ -1,10 +1,13 @@
 """
 One process per GPU over ``torch.distributed``: the counterpart of the JAX
 package's ``parallel/multihost.py``, in the SPMD form of the original
-dynamite's one MPI rank per GPU.
+dynamite's one MPI rank per GPU, on one host or across several.
 
-Typical driver, started with ``torchrun --nproc-per-node=N script.py``:
+Typical driver, started by any of the launchers :func:`initialize` reads:
 
+    # torchrun --nnodes=2 --nproc-per-node=4 --rdzv-endpoint=H:P script.py
+    # srun --nodes=2 --ntasks-per-node=4 python script.py
+    # mpirun -n 8 --npernode 4 python script.py
     from dynamite_tpu_torch.parallel import multihost
     multihost.initialize()      # NCCL on the GPUs, gloo on the CPU
     ... build operators and states as usual; each rank holds its rows ...
@@ -14,10 +17,16 @@ helper here is a no-op.
 """
 
 import os
+import re
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+# jax.distributed's coordinator port under SLURM and Open MPI: one of the
+# 4096 ports up to 65535, chosen by the job id
+_PORT_BASE = 65536 - 4096
 
 
 def is_initialized():
@@ -33,32 +42,179 @@ def world_size():
     return dist.get_world_size() if is_initialized() else 1
 
 
-def initialize(rank=None, world_size=None, init_method=None):
+class Launch(NamedTuple):
+    """What a launcher's environment says about this process. ``host`` and
+    ``port`` name the coordinator (rank 0's rendezvous), ``None`` where the
+    launcher's own rendezvous (torchrun's ``env://``) takes them."""
+    launcher: str
+    rank: int
+    world_size: int
+    local_rank: int
+    host: str = None
+    port: int = None
+
+
+def _need(env, launcher, *names):
+    """The values of ``names`` in ``env``; raises where one is missing."""
+    missing = [n for n in names if n not in env]
+    if missing:
+        raise ValueError(f'{launcher} environment without {", ".join(missing)}'
+                         f': cannot join its job')
+    return [env[n] for n in names]
+
+
+def _ids(env, launcher, rank, world, local):
+    return [int(v) for v in _need(env, launcher, rank, world, local)]
+
+
+def _slurm_first_host(node_list):
+    """The first host of a SLURM node list, in the forms ``node001``,
+    ``node001,host2``, ``node[001-015],host2`` and ``node[001,007-015]``."""
+    m = re.match(r'([^,\[]*)(?:\[([^,\]-]*))?', node_list)
+    return m.group(1) + (m.group(2) or '')
+
+
+def _ompi_launcher_host(uri):
+    """The launcher's address in Open MPI's ``OMPI_MCA_orte_hnp_uri``, e.g.
+    ``1531576320.0;tcp://10.96.0.1,10.148.0.1:34911`` or
+    ``1314521088.0;tcp6://[fe80::b9b,2620:10d::2]:43370``: the first
+    address of its ``tcp://`` or ``tcp6://[...]`` list."""
+    m = re.search(r'tcp://(.+?)[,:]|tcp6://\[(.+?)[,\]]', uri)
+    if m is None:
+        raise ValueError(f'no tcp:// or tcp6:// address in Open MPI\'s '
+                         f'OMPI_MCA_orte_hnp_uri {uri!r}')
+    return m.group(1) or m.group(2)
+
+
+def detect_launch(env=None):
+    """The :class:`Launch` that the environment ``env`` (default
+    ``os.environ``) describes, or None when no launcher set it. Read in
+    this order, the first present wins:
+
+    * torchrun (``RANK`` or ``WORLD_SIZE``): ``RANK``, ``WORLD_SIZE``,
+      ``LOCAL_RANK``; the coordinator is torchrun's ``env://``
+      (``MASTER_ADDR``, ``MASTER_PORT``).
+    * SLURM's ``srun`` (``SLURM_PROCID``): ``SLURM_PROCID``,
+      ``SLURM_NTASKS``, ``SLURM_LOCALID``; the coordinator is the first
+      host of ``SLURM_STEP_NODELIST`` at port ``SLURM_JOB_ID % 4096 +
+      61440``, as ``jax.distributed`` derives it, so a job script written
+      for the JAX package runs unchanged.
+    * Open MPI's ``mpirun`` (``OMPI_MCA_orte_hnp_uri``, which it alone
+      sets): ``OMPI_COMM_WORLD_RANK``, ``..._SIZE``, ``..._LOCAL_RANK``;
+      the coordinator is the launcher's address in that URI, at port
+      ``(jobid // 4096) % 4096 + 61440`` (the jobid the URI starts with),
+      as ``jax.distributed`` derives it.
+
+    Under SLURM and Open MPI, ``MASTER_ADDR`` and ``MASTER_PORT`` take
+    precedence over the derived coordinator where set. A launcher's
+    environment that lacks one of its values raises ``ValueError``: it
+    never reads as one process.
+
+    Left out: Cloud TPU detection (the TPU's own), and JAX's Kubernetes
+    detection, which needs the ``kubernetes`` client and an API server."""
+    env = os.environ if env is None else env
+    if 'RANK' in env or 'WORLD_SIZE' in env:
+        return Launch('torchrun', *_ids(env, 'torchrun', 'RANK',
+                                        'WORLD_SIZE', 'LOCAL_RANK'))
+    if 'SLURM_PROCID' in env:
+        ids = _ids(env, 'SLURM', 'SLURM_PROCID', 'SLURM_NTASKS',
+                   'SLURM_LOCALID')
+        if 'MASTER_ADDR' in env:
+            host = env['MASTER_ADDR']
+        else:
+            host = _slurm_first_host(*_need(env, 'SLURM',
+                                            'SLURM_STEP_NODELIST'))
+        if 'MASTER_PORT' in env:
+            port = int(env['MASTER_PORT'])
+        else:
+            job_id, = _need(env, 'SLURM', 'SLURM_JOB_ID')
+            port = int(job_id) % 4096 + _PORT_BASE
+        return Launch('slurm', *ids, host, port)
+    if 'OMPI_MCA_orte_hnp_uri' in env:
+        ids = _ids(env, 'Open MPI', 'OMPI_COMM_WORLD_RANK',
+                   'OMPI_COMM_WORLD_SIZE', 'OMPI_COMM_WORLD_LOCAL_RANK')
+        uri = env['OMPI_MCA_orte_hnp_uri']
+        host = env.get('MASTER_ADDR') or _ompi_launcher_host(uri)
+        if 'MASTER_PORT' in env:
+            port = int(env['MASTER_PORT'])
+        else:
+            jobid = int(uri.split('.', 1)[0])
+            port = (jobid // 4096) % 4096 + _PORT_BASE
+        return Launch('ompi', *ids, host, port)
+    return None
+
+
+def _tcp(host, port):
+    return f'tcp://[{host}]:{port}' if ':' in host else f'tcp://{host}:{port}'
+
+
+def _card(local_rank):
+    """This process's GPU: ``cuda:{local_rank}``, refused where this process
+    sees no such card (two ranks on one card fail late in NCCL)."""
+    n = torch.cuda.device_count()
+    if not 0 <= local_rank < n:
+        raise RuntimeError(f'local rank {local_rank} needs a GPU of its own, '
+                           f'but this process sees {n} CUDA device(s): start '
+                           f'at most {n} processes a host, or give each its '
+                           f'own CUDA_VISIBLE_DEVICES')
+    return torch.device('cuda', local_rank)
+
+
+def initialize(coordinator_address=None, num_processes=None, process_id=None,
+               *, rank=None, world_size=None, init_method=None):
     """Start the process group and pin ``config.device`` to this rank's GPU.
 
+    The JAX package's signature comes first: ``coordinator_address``
+    (``'host:port'``, rank 0's rendezvous), ``num_processes`` and
+    ``process_id``. ``rank``, ``world_size`` and ``init_method`` (any
+    ``torch.distributed`` URL, e.g. ``'file:///path/store'``) are the same
+    values in torch's spelling; giving both spellings of one value raises.
+    Each value not given comes from the launcher's environment
+    (:func:`detect_launch`: torchrun, SLURM's srun, Open MPI's mpirun). With
+    neither arguments nor a launcher this is one process: no group starts
+    and nothing changes.
+
     The backend is NCCL when ``config.device`` is CUDA (its default when a
-    card is present) and gloo on the CPU. ``rank``, ``world_size`` and
-    ``init_method`` default to what ``torchrun`` sets (``RANK``,
-    ``WORLD_SIZE``, ``env://``); pass them to run without it, e.g.
-    ``init_method='tcp://localhost:29500'`` or ``'file:///path/store'``.
-    The GPU is ``cuda:{LOCAL_RANK}``, else ``cuda:{rank % device_count}``.
-    A second call does nothing.
+    card is present) and gloo on the CPU. The GPU is ``cuda:{local rank}``,
+    the launcher's local rank (without a launcher, ``rank %
+    device_count``); a local rank this process has no card for raises. A
+    second call does nothing.
     """
     from .. import config
+    for ours, theirs, a, b in (('coordinator_address', 'init_method',
+                                coordinator_address, init_method),
+                               ('num_processes', 'world_size',
+                                num_processes, world_size),
+                               ('process_id', 'rank', process_id, rank)):
+        if a is not None and b is not None:
+            raise TypeError(f'initialize() got both {ours} and {theirs}, '
+                            f'two spellings of one value')
     if is_initialized():
         return
-    if rank is None:
-        rank = int(os.environ.get('RANK', 0))
-    if world_size is None:
-        world_size = int(os.environ.get('WORLD_SIZE', 1))
-    if init_method is None:
-        init_method = 'env://'
+    if coordinator_address is not None:
+        init_method = 'tcp://' + coordinator_address
+    world_size = num_processes if world_size is None else world_size
+    rank = process_id if rank is None else rank
+    launch = detect_launch()
+    if launch is None and (rank, world_size, init_method) == (None,) * 3:
+        return
+    if launch is not None:
+        rank = launch.rank if rank is None else rank
+        world_size = launch.world_size if world_size is None else world_size
+        if init_method is None:
+            init_method = ('env://' if launch.host is None
+                           else _tcp(launch.host, launch.port))
+    missing = [name for name, v in (('rank', rank), ('world_size', world_size),
+                                    ('init_method', init_method))
+               if v is None]
+    if missing:
+        raise ValueError(f'initialize() without {", ".join(missing)}, and no '
+                         f'launcher environment gives it')
 
     device = config.device
     if device.type == 'cuda':
-        local = int(os.environ.get('LOCAL_RANK',
-                                   rank % torch.cuda.device_count()))
-        device = torch.device('cuda', local)
+        device = _card(launch.local_rank if launch is not None
+                       else rank % torch.cuda.device_count())
         torch.cuda.set_device(device)
         backend = 'nccl'
     else:
@@ -99,13 +255,19 @@ def allgather_host_values(value_array):
     return np.stack(out)
 
 
-def barrier():
+def barrier(name=None):
+    """Wait until every rank reaches this point. ``name`` (the JAX
+    package's argument) labels the barrier in any error it raises."""
     if world_size() > 1:
         device = _comm_device()
-        if device.type == 'cuda':
-            dist.barrier(device_ids=[device.index])
-        else:
-            dist.barrier()
+        try:
+            if device.type == 'cuda':
+                dist.barrier(device_ids=[device.index])
+            else:
+                dist.barrier()
+        except RuntimeError as e:
+            raise RuntimeError(f'barrier {name!r} failed on rank {rank()} of '
+                               f'{world_size()}: {e}') from e
 
 
 def gather_rows(t, to_all=True, dim=None):

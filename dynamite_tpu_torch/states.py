@@ -473,7 +473,7 @@ class State:
         finally:
             if f is not None:
                 f.close()
-        multihost.barrier()
+        multihost.barrier('state_save')
 
     @classmethod
     def from_file(cls, fname):

@@ -111,7 +111,7 @@ def MPI_COMM_WORLD():
         size = multihost.world_size()
 
         def barrier(self):
-            multihost.barrier()
+            multihost.barrier('barrier')
 
     return _Comm()
 

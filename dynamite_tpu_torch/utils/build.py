@@ -7,6 +7,7 @@ source and the flags.
 import hashlib
 import os
 import shutil
+import socket
 import subprocess
 import time
 from pathlib import Path
@@ -42,8 +43,11 @@ def build_shared_library(compiler, flags, source, name):
                 'log': log.read_text() if log.exists() else ''}
     out_dir.mkdir(parents=True, exist_ok=True)
     # build to a private name, then rename: a concurrent process never
-    # loads a half-written library
-    tmp = lib.with_name(f'{lib.stem}.{os.getpid()}{lib.suffix}')
+    # loads a half-written library; the name carries the host as well as
+    # the pid, since processes of two hosts can share a pid and the build
+    # directory (a shared filesystem)
+    tmp = lib.with_name(f'{lib.stem}.{socket.gethostname()}.{os.getpid()}'
+                        f'{lib.suffix}')
     t0 = time.perf_counter()
     try:
         proc = subprocess.run([compiler, *flags, '-o', str(tmp), str(source)],

@@ -12,8 +12,11 @@ at half filling, SpinConserve(30, 15), dim C(30, 15) = 155,117,520.
     # P virtual ranks in one process on one GPU (the per-rank code a
     # process group runs)
     python run_sharded_torch.py -L 30 --virtual 4 -m 2
-    # one process per GPU on NCCL
+    # one process per GPU on NCCL, from any launcher multihost.initialize()
+    # reads (torchrun, SLURM's srun, Open MPI's mpirun), on one node or more
     torchrun --standalone --nproc-per-node=4 run_sharded_torch.py -L 30 -m 2
+    srun --nodes=2 --ntasks-per-node=4 --gpus-per-node=4 \
+        python run_sharded_torch.py -L 30 -m 2
     # on the CPU (small L)
     python run_sharded_torch.py -L 12 --device cpu --precision double
 
@@ -27,7 +30,6 @@ tables made from the ring's sector plan.
 """
 
 import argparse
-import os
 import sys
 import time
 from math import comb
@@ -125,7 +127,7 @@ def max_over_ranks(value):
 def sync():
     if config.device.type == 'cuda':
         torch.cuda.synchronize()
-    multihost.barrier()
+    multihost.barrier('sync')
 
 
 def timed(fn):
@@ -142,11 +144,12 @@ def main(argv=None):
     if args.device is not None:
         config.device = args.device
     config.precision = args.precision
-    if int(os.environ.get('WORLD_SIZE', 1)) > 1:
-        if args.virtual is not None:
-            raise SystemExit('--virtual runs in one process, not under '
-                             'torchrun')
-        multihost.initialize()
+    # the launcher's group (torchrun, srun, mpirun); without one, one
+    # process
+    multihost.initialize()
+    if args.virtual is not None and multihost.world_size() > 1:
+        raise SystemExit('--virtual runs in one process, not under a '
+                         'launcher')
     world = args.virtual or multihost.world_size()
     virtual = multihost.world_size() == 1
     if args.vs_one_device and not virtual:

@@ -764,6 +764,37 @@ def test_distributed_dot_on_nccl(card, tmp_path):
                                                 rel=1e-12)
 
 
+def test_two_nodes_on_nccl(card, tmp_path):
+    """Two nodes emulated on two cards, one each (the launch of
+    tests/test_torch_multinode.py): each rank started by
+    ``multihost.initialize()`` from SLURM's variables alone, each node its
+    own ``CUDA_VISIBLE_DEVICES`` card (local rank 0), ``NCCL_HOSTID``,
+    working directory and ``TMPDIR``; the all-reduce, a named barrier and
+    heisenberg(10)'s dot over both nodes within 1e-12 of numpy's (float64);
+    NCCL's log shows a communicator of two nodes and every link over
+    NET/Socket. Needs two GPUs or more."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two GPUs or more')
+    from chip_smoke import nccl_links
+    from tests.test_torch_multinode import check_light, spawn_nodes
+    logs = tmp_path / 'nccl'
+    logs.mkdir()
+
+    def nccl(node, rank):
+        return {'NCCL_IB_DISABLE': '1', 'NCCL_NET': 'Socket',
+                'NCCL_SOCKET_IFNAME': 'lo', 'NCCL_DEBUG': 'INFO',
+                'NCCL_DEBUG_SUBSYS': 'INIT,P2P',
+                'NCCL_DEBUG_FILE': str(logs / f'rank{rank}.log')}
+    recs = spawn_nodes('light', tmp_path, 'slurm', per_node=1,
+                       device='cuda', extra_env=nccl)
+    check_light(recs, tmp_path / 'shared', 'slurm', per_node=1)
+    for r, rec in enumerate(recs):
+        assert (rec['card'], rec['host_id']) == ('cuda:0', f'node{r}')
+        links = nccl_links((logs / f'rank{r}.log').read_text())
+        assert links['transports'] == ['NET/Socket'], links
+        assert (2, 2) in links['nccl_comms_ranks_nodes'], links
+
+
 def _virtual(H, sub, world, **settings):
     """The one-device kernel and a kernel over ``world`` virtual ranks of
     one operator and subspace, built under ``settings`` (config)."""

@@ -604,11 +604,13 @@ def test_multiprocess_contracts(tmp_path):
     gloo ranks (its worker's three contracts): an unseeded random state is
     the same on every rank (rank 0's seed broadcast; a CRC of the gathered
     vector, all-gathered), evolve of heisenberg(10) from the Neel state at
-    t = 0.3 matches scipy's expm_multiply within 1e-8, and a save from the
-    ranks is read back by ``from_file`` on every rank."""
+    t = 0.3 matches scipy's expm_multiply within 1e-8, a save from the
+    ranks is read back by ``from_file`` on every rank, and every rank
+    passes ``barrier('done')``, as the worker ends."""
     recs = _spawn('mirror', 2, tmp_path)
     assert recs[0]['crc'] == recs[1]['crc']
     assert all(r['evolve_err'] < 1e-8 and r['reloaded'] for r in recs)
+    assert all(r['done'] for r in recs)
 
 
 # -- the rank processes ---------------------------------------------------
@@ -859,6 +861,9 @@ def _rank_main(case, rank, world, store, out_dir, device):
         loaded = State.from_file(fname)
         rec['reloaded'] = bool(np.allclose(loaded.to_numpy(), got,
                                            atol=1e-12))
+        # the worker's last step, a named barrier
+        multihost.barrier('done')
+        rec['done'] = True
     else:
         raise ValueError(case)
 
