@@ -14,7 +14,9 @@ sector SpinConserve(24, 12) (dim 2,704,156) through the sector engine, and
 on the same sector discovered by Auto through the ELL kernel:
 
 1. environment: torch/CUDA versions, the card, its power limit, build times,
-   ptxas registers and spills of each kernel;
+   ptxas registers and spills of each kernel; then ``draw``: the random
+   state's draw (``ops/draw.py``) at 2^24 rows on the card against the
+   CPU (see phase_draw);
 2. ``kernel``: the one-device route against its plain PyTorch version on the
    card, Full and both Parity sectors, long_range(24), and localized(24) on
    XParity(Full(24)) in both sectors, float32 and float64, with times,
@@ -111,7 +113,7 @@ on the same sector discovered by Auto through the ELL kernel:
    the transports' ms and the solves' seconds over NET/Socket beside
    NVLink's (see phase_multinode). On one card it says it needs two;
 14. ``examples``: the JAX package's example scripts (floquet at L=24 with
-   a checkpoint and a resume, and at L=16; kagome '24'; mbl at L=14; syk
+   a checkpoint and a resume, and at L=16; kagome '24'; mbl at L=12; syk
    at N=32) through the package switch, each in its own process, and the
    port of the sharded one (``run_sharded_torch.py``, SpinConserve(30, 15)
    over 4 virtual ranks), against each other, the JAX package's float64
@@ -127,7 +129,14 @@ on the same sector discovered by Auto through the ELL kernel:
    ``--notebook`` mode on the card and on the CPU, each in its own
    process, their outputs equal cell by cell
    (``tests/torch_tutorial_reference.py``), with each run's seconds,
-   device peak and launches (see phase_tutorial).
+   device peak and launches (see phase_tutorial);
+17. ``cards``: with two cards or more, every card of this host from
+   unchanged code: the examples, the 15 reference files and notebooks 1-6
+   through ``python -m dynamite_tpu_torch.switch`` at its default (one
+   process per card, NCCL), held to phases 14-16's one-card runs, and on
+   four cards floquet at L=27 in float64 with each card's peak (see
+   phase_cards). It runs after phase 16, alone, so the one-card phases'
+   records stay one card's. On one card it says it needs two.
 
 Each phase prints one JSON line (the sector and XOR-dense engines'
 records also one ``{"engines": [...]}`` line), with the device memory peak
@@ -206,6 +215,7 @@ CHILD_REFERENCE = '--child-reference-suite'
 REFERENCE_ONLY = '--reference-suite'
 CHILD_NOTEBOOK = '--child-notebook'
 TUTORIAL_ONLY = '--tutorial'
+CHILD_CARDS = '--child-cards'
 
 # error bounds of the kernel against its plain version: max|dy| / max|y|.
 # Both sum the same terms in float arithmetic of the working type but in
@@ -289,7 +299,9 @@ ESTIMATE_RTOL = 0.10
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    # one write a line: phases in threads emit beside each other
+    sys.stdout.write(json.dumps(obj) + '\n')
+    sys.stdout.flush()
 
 
 def require_card_and_port():
@@ -349,6 +361,35 @@ def phase_env():
           'builds_wall_s': time.perf_counter() - t0,
           'ptxas': ptxas_records(xor_build['log'] + ell_build['log'])})
     return card
+
+
+# the random draw (ops/draw.py) on the card against the CPU, relative to
+# the largest entry: one (seed, row) function, each device's own log,
+# sqrt, cos and sin; float32 is the float64 value rounded once
+DRAW_RTOL = {'float64': 1e-14, 'float32': 2.0 ** -23}
+
+
+def phase_draw(L=24):
+    """The random state's draw at L=24 (2^24 rows) on the card against the
+    CPU, float64 and float32: the largest difference relative to the
+    largest entry (held to DRAW_RTOL) and the share of entries that are
+    bitwise equal."""
+    import torch
+    from dynamite_tpu_torch.ops.draw import normal_rows
+    out = {'phase': 'draw', 'rows': 1 << L}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split('.')[-1]
+        got = normal_rows(5, 1 << L, dtype, torch.device('cuda'), 0, 1).cpu()
+        want = normal_rows(5, 1 << L, dtype, torch.device('cpu'), 0, 1)
+        out[name] = {'max_rel_err': float((got - want).abs().max()
+                                          / want.abs().max()),
+                     'bitwise_equal_share': float((got == want).double()
+                                                  .mean())}
+    emit(out)
+    bad = [k for k, tol in DRAW_RTOL.items() if out[k]['max_rel_err'] > tol]
+    if bad:
+        raise RuntimeError(f'phase draw: {bad} off the CPU: {out}')
+    return out
 
 
 def ptxas_records(log):
@@ -2840,10 +2881,10 @@ def child_example(name, args):
     path = os.path.join(REPO, 'examples', 'scripts', EXAMPLE_SCRIPTS[name])
     if name == 'mbl':
         # SpinConserve pairs through the ELL kernel, one launch an apply:
-        # mid-spectrum MINRES at L=14 takes ~500,000 applies, and the
+        # mid-spectrum MINRES takes ~500,000 applies at L=14, and the
         # sector engine (the script's default route) is launch-bound at
-        # this size, ~70x the ELL kernel's time an apply (recorded in
-        # apply_ms): the script would take ~15 min
+        # such sizes, ~70x the ELL kernel's time an apply at L=14
+        # (recorded in apply_ms): the script would take ~15 min there
         from dynamite_tpu_torch import config
         config.use_sector = False
     torch.cuda.reset_peak_memory_stats()
@@ -2958,7 +2999,7 @@ def phase_examples():
       (``tests/torch_examples_reference.py``, 1e-10);
     * kagome '24' (XParity(SpinConserve(24, 12)), dim 1,352,078): E0
       against the JAX package's float64 value (1e-9);
-    * mbl at L=14 (dim 3,432), seed 7, through the ELL kernel: every inner
+    * mbl at L=12 (dim 924), seed 7, through the ELL kernel: every inner
       MINRES solve of the target solve converged, no RuntimeWarning, the
       energy point 0.5 line against numpy.linalg.eigh (1e-8); with the ms
       of one apply by the sector engine, the script's default route;
@@ -2971,19 +3012,20 @@ def phase_examples():
     * the profiler: eigsolve(localized(20)) on Full(20) with
       ``config.profile_dir`` set leaves a trace naming ``xor_apply_kernel``.
 
-    The runs go in three lanes at once (floquet and kagome; mbl; the
-    sharded example and syk), each lane's runs one after another: mbl's
-    solve is bound by the host's launches and syncs, the sharded
-    example's by its host plan build, so the lanes share the card and
-    the host's cores. A run's seconds therefore include its share of
-    both. No run is timed for a kernel. Returns the phase's record."""
+    The runs go in four lanes at once (floquet; mbl and kagome; the
+    sharded example; syk), each lane's runs one after another: each run
+    is a process that takes ~11 s to start, mbl's solve is bound by the
+    host's launches and syncs, the sharded example's and syk's by their
+    host builds, so the lanes share the card and the host's cores. A run's
+    seconds therefore include its share of both. No run is timed for a
+    kernel. Returns the phase's record."""
     import glob
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
     import numpy as np
     from tests.torch_examples_reference import FLOQUET_L16, KAGOME_24_E0
 
-    def lane_floquet_kagome():
+    def lane_floquet():
         with tempfile.TemporaryDirectory() as tmp:
             runs = [run_example('floquet', '-L', 24, '--n-cycles', 9),
                     run_example('floquet', '-L', 24, '--n-cycles', 6,
@@ -2992,27 +3034,35 @@ def phase_examples():
                     run_example('floquet', '-L', 24, '--n-cycles', 9,
                                 '--checkpoint-every', 3,
                                 '--checkpoint-path', tmp)]
-        return runs + [run_example('floquet', '-L', 16, '--n-cycles', 3),
-                       run_example('kagome', '24')]
+        return runs + [run_example('floquet', '-L', 16, '--n-cycles', 3)]
 
-    def lane_mbl():
-        return [run_example('mbl', '-L', 14, '--iters', 1, '--h-points', 1,
-                            '--energy-points', 3, '--seed', 7)]
+    # L=12, not 14: L=14's mid-spectrum solve (167-173 s on one H100) was
+    # the phase's long pole, and phase cards now follows it in the
+    # script's time
+    def lane_mbl_kagome():
+        return [run_example('mbl', '-L', 12, '--iters', 1, '--h-points', 1,
+                            '--energy-points', 3, '--seed', 7),
+                run_example('kagome', '24')]
 
-    def lane_sharded_syk():
+    def lane_sharded():
         # the script itself raises unless it took the alpha ring, its Neel
         # column is exact (1e-6), its product is the one-device engine's
         # (1e-5) and its Ritz values are finite
         return [run_example('sharded', '-L', 30, '--virtual', 4, '-m', 2,
-                            '--vs-one-device'),
-                run_example('syk', '-N', 32, '-b', 0.5, '-t', 0.5,
+                            '--vs-one-device')]
+
+    def lane_syk():
+        return [run_example('syk', '-N', 32, '-b', 0.5, '-t', 0.5,
                             '--seed', 5)]
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        lanes = [pool.submit(f) for f in (lane_floquet_kagome, lane_mbl,
-                                          lane_sharded_syk)]
-    runs = [rec for lane in lanes for rec in lane.result()]
+    with ThreadPoolExecutor(4) as pool:
+        lanes = [pool.submit(f) for f in (lane_floquet, lane_mbl_kagome,
+                                          lane_sharded, lane_syk)]
+    floquet, (mbl, kagome), (sharded,), (syk,) = [lane.result()
+                                                  for lane in lanes]
+    # the records' order: floquet x4, kagome, mbl, sharded, syk
+    runs = floquet + [kagome, mbl, sharded, syk]
     lanes_s = time.perf_counter() - t0
     recs = [{k: v for k, v in rec.items() if k != 'lines'} for rec in runs]
     whole, part, resumed, fl16, kagome, mbl, _sharded, syk = runs
@@ -3054,7 +3104,7 @@ def phase_examples():
     _check(err <= MBL_TOL and stats['minres_unconverged'] == 0
            and not mbl['runtime_warnings']
            and mbl['launches']['ell_apply'] > 0,
-           f'mbl L=14: {err:.3e} from eigh, {stats["minres_unconverged"]} '
+           f'mbl L=12: {err:.3e} from eigh, {stats["minres_unconverged"]} '
            f'inner solves unconverged, warnings {mbl["runtime_warnings"]}',
            recs)
 
@@ -3088,7 +3138,9 @@ def phase_examples():
     out = {'phase': 'examples', 'runs': recs, 'lanes_s': lanes_s,
            'profile': profile}
     emit(out)
-    return out
+    # the one-card output phase cards is held to
+    return dict(out, lines={'floquet24': whole['lines'],
+                            'kagome24': kagome['lines']})
 
 
 def _launch_counts():
@@ -3114,7 +3166,8 @@ def child_reference_suite():
     args = [os.path.join('tests', rel) for rel in UNCHANGED]
     for nodeid in EXCLUDED:
         args += ['--deselect', os.path.join('tests', nodeid)]
-    rc = switch.main(['--pytest', *args, '-q', '-p', 'no:randomly'])
+    rc = switch.main(['--cards', '1', '--pytest', *args, '-q', '-p',
+                      'no:randomly'])
     emit({'launches': _launch_counts()})
     sys.exit(rc)
 
@@ -3155,7 +3208,7 @@ def phase_reference_suite():
     if not ok:
         sys.stderr.write(proc.stdout[-12000:] + proc.stderr[-4000:])
         raise RuntimeError(f'phase reference_suite: {out}')
-    return out
+    return dict(out, file_records=files)
 
 
 def child_notebook(name, device):
@@ -3253,6 +3306,391 @@ def phase_tutorial(cpu_runs=None):
            'card_launches': {k: sum(r['card_launches'][k] for r in recs)
                              for k in recs[0]['card_launches']}}
     emit(out)
+    # the one-card output phase cards is held to
+    return dict(out, card={nb: run['output']
+                           for nb, run in card_runs.items()})
+
+
+# phase cards: the physics numbers of a run over the cards against the
+# one-card run's (relative, with an absolute floor for numbers that are 0
+# on both); kagome's E0 to KAGOME_TOL, as in phase examples; the norm of
+# the L=27 floquet state after each cycle
+CARDS_RTOL = 1e-10
+CARDS_ATOL = 1e-12
+CARDS_NORM_TOL = 1e-10
+# the ranks' CPU threads while the phase's runs share the host (and, in
+# the whole script, the reference suite and tutorial phases)
+CARDS_THREADS = '1'
+
+
+class _StampedLines:
+    """A text sink that keeps what is written and the host clock at each
+    line's end."""
+
+    def __init__(self):
+        self.parts, self.stamps = [], []
+
+    def write(self, text):
+        self.parts.append(text)
+        self.stamps += [time.perf_counter()] * text.count('\n')
+        return len(text)
+
+    def flush(self):
+        pass
+
+    def getvalue(self):
+        return ''.join(self.parts)
+
+
+def _cards_numbers(lines):
+    """Every number of an example's output lines that are physics (the
+    floquet and mbl tables, kagome's E0 and gap lines), in order."""
+    out = []
+    for line in lines:
+        if line.startswith(('E0 = ', 'gap = ')):
+            line = ' '.join(line.split('=')[1:])  # the values, not labels
+        elif not line or line[0].isalpha():
+            continue
+        out += [float(x) for x in re.findall(
+            r'[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?|nan', line)]
+    return out
+
+
+def _cards_close(got, want, rtol=CARDS_RTOL):
+    import numpy as np
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    if got.shape != want.shape or got.size == 0:
+        return False, float('inf')
+    both_nan = np.isnan(got) & np.isnan(want)
+    err = np.where(both_nan, 0.0, np.abs(got - want)
+                   / (np.abs(want) + CARDS_ATOL / rtol))
+    return bool(np.all(err <= rtol)), float(np.max(err))
+
+
+def child_cards(kind, args):
+    """``python -m dynamite_tpu_torch.switch [--cards N] chip_smoke.py
+    --child-cards KIND ARGS...``: one rank of a run over the cards, the
+    switch's own (every rank runs this; rank 0 prints). KIND is an example
+    (its script through ``switch.run_script``, unchanged), ``notebook``
+    (ARGS the notebook's name, through ``switch.run_notebook``) or
+    ``pytest`` (ARGS pytest's, through ``switch.run_pytest``). The rank
+    joins the switch's group at its first use of the port; its card is
+    ``cuda:{LOCAL_RANK}``. For floquet the state's norm after each evolve is
+    recorded (a collective on every rank; X is a permutation, so it is the
+    norm after each cycle), and mbl runs through the ELL kernel, as in
+    phase examples. Rank 0 emits one JSON line: the output lines and the
+    seconds at which each was printed, and by rank its device peak, launch
+    counts (0 at the start), seconds and whether jax was imported."""
+    require_card_and_port()
+    import contextlib
+    import numpy as np
+    import torch
+    from dynamite_tpu_torch import config, operators, switch
+    from dynamite_tpu_torch.parallel import multihost
+    device = config.device  # joins the group: this rank's card
+    torch.cuda.reset_peak_memory_stats(device)
+    norms = []
+    if kind == 'floquet':
+        evolve = operators.Operator.evolve
+
+        def evolve_and_norm(self, *a, **kw):
+            out = evolve(self, *a, **kw)
+            norms.append(out.norm())
+            return out
+        operators.Operator.evolve = evolve_and_norm
+    if kind == 'mbl':
+        config.use_sector = False
+    buf, rc = _StampedLines(), 0
+    t0 = time.perf_counter()
+    if kind == 'pytest':
+        rc = switch.run_pytest(list(args))
+    else:
+        with contextlib.redirect_stdout(buf):
+            if kind == 'notebook':
+                switch.run_notebook(os.path.join(REPO, 'examples',
+                                                 'tutorial', args[0]))
+            else:
+                switch.run_script(os.path.join(REPO, 'examples', 'scripts',
+                                               EXAMPLE_SCRIPTS[kind]), args)
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    mine = _launch_counts()
+    ranks = multihost.allgather_host_values(np.array([
+        torch.cuda.max_memory_allocated(device), mine['xor_apply'],
+        mine['xor_diagonal'], mine['ell_apply'], seconds,
+        'jax' in sys.modules, rc], dtype=np.float64))
+    if multihost.rank() == 0:
+        emit({'kind': kind, 'args': list(args),
+              'world': multihost.world_size(),
+              'lines': buf.getvalue().splitlines(),
+              'line_s': [t - t0 for t in buf.stamps], 'norms': norms,
+              'peak_gb': (ranks[:, 0] / 1e9).tolist(),
+              'launches': {k: ranks[:, i].astype(int).tolist() for i, k in
+                           enumerate(('xor_apply', 'xor_diagonal',
+                                      'ell_apply'), 1)},
+              'seconds': ranks[:, 4].tolist(),
+              'jax_imported': bool(ranks[:, 5].any()),
+              'pytest_exit': int(ranks[:, 6].max())})
+    if rc:
+        sys.exit(rc)
+
+
+def run_cards(kind, *args, cards=None, timeout=900):
+    """:func:`child_cards` over ``cards`` ranks (the switch's default, every
+    card, when None) in one run of ``python -m dynamite_tpu_torch.switch``;
+    returns rank 0's record, with the run's seconds and, for pytest, its
+    per-file lines."""
+    import torch
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, '-m', 'dynamite_tpu_torch.switch']
+    if cards is not None:
+        cmd += ['--cards', str(cards)]
+    cmd += [os.path.abspath(__file__), CHILD_CARDS, kind, *map(str, args)]
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS=CARDS_THREADS)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout, cwd=REPO, env=env)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or \
+            not lines[-1].startswith('{"kind"'):
+        sys.stderr.write(proc.stdout[-6000:] + proc.stderr[-6000:])
+        raise RuntimeError(f'phase cards: {kind} {list(args)} over '
+                           f'{cards or "every"} card(s) failed (exit code '
+                           f'{proc.returncode})')
+    rec = json.loads(lines[-1])
+    rec['run_s'] = time.perf_counter() - t0
+    rec['files'] = [json.loads(line) for line in lines
+                    if line.startswith('{"reference_file"')]
+    return rec
+
+
+def cards_runs():
+    """The runs of phase cards: every card of this host from unchanged
+    code, through the switch's default (``python -m
+    dynamite_tpu_torch.switch`` with no ``--cards``: one process per card,
+    NCCL between them), each run through :func:`child_cards`:
+
+    * the examples, unchanged: floquet at L=24 (9 cycles; 6 with a
+      checkpoint every 3, resumed to 9), kagome '24', syk at N=32, and mbl
+      at L=12 (one h point, its lowest and highest eight levels, through
+      the ELL kernel) with a ``--cards 1`` run of the same arguments;
+    * floquet at L=27 in float64 (the script's default; a vector is 2.15
+      GB), 2 cycles, on four cards or more;
+    * the JAX package's 15 reference files (``--pytest``) and the tutorial
+      notebooks 1-6.
+
+    The runs go in six lanes at once, notebook 3 (~116,000 MINRES
+    iterations, the longest over NCCL) in a lane of its own, each rank at
+    CARDS_THREADS CPU threads, so their seconds include their share of the
+    cards and the host; no other phase runs meanwhile. Returns {run:
+    child_cards' record} with the lanes' seconds under 'lanes_s', or None
+    on one card (it says it needs two)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from tests.torch_reference_suite import EXCLUDED, UNCHANGED
+    from tests.torch_tutorial_reference import NOTEBOOKS
+    n = torch.cuda.device_count()
+    if n < 2:
+        emit({'phase': 'cards', 'ran': False,
+              'why': f'needs two cards (one process each); this machine '
+                     f'has {n}'})
+        return None
+    t0 = time.perf_counter()
+
+    def lane_floquet():
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = {'floquet24_part': run_cards(
+                        'floquet', '-L', 24, '--n-cycles', 6,
+                        '--checkpoint-every', 3, '--checkpoint-path', tmp),
+                    'floquet24_resumed': run_cards(
+                        'floquet', '-L', 24, '--n-cycles', 9,
+                        '--checkpoint-every', 3, '--checkpoint-path', tmp)}
+        return runs
+
+    def lane_full_width():
+        runs = {'floquet24': run_cards('floquet', '-L', 24, '--n-cycles', 9)}
+        if n >= 4:
+            runs['floquet27'] = run_cards('floquet', '-L', 27,
+                                          '--n-cycles', 2)
+        return runs
+
+    # mbl at its two extremal points: the mid-spectrum point's ~120,000
+    # MINRES iterations at L=12 would be another run as long as notebook 3
+    mbl_args = ('-L', 12, '--iters', 1, '--h-points', 1, '--energy-points',
+                2, '--seed', 7)
+
+    def lane_kagome_syk():
+        return {'kagome24': run_cards('kagome', '24'),
+                'syk32': run_cards('syk', '-N', 32, '-b', 0.5, '-t', 0.5,
+                                   '--seed', 5)}
+
+    reference_args = [os.path.join('tests', rel) for rel in UNCHANGED]
+    for nodeid in EXCLUDED:
+        reference_args += ['--deselect', os.path.join('tests', nodeid)]
+    reference_args += ['-q', '-p', 'no:randomly']
+
+    def lane_mbl_reference():
+        return {'mbl12': run_cards('mbl', *mbl_args),
+                'reference': run_cards('pytest', *reference_args)}
+
+    def lane_notebook3():
+        return {NOTEBOOKS[2]: run_cards('notebook', NOTEBOOKS[2])}
+
+    def lane_mbl_one_notebooks():
+        runs = {'mbl12_one_card': run_cards('mbl', *mbl_args, cards=1)}
+        with ThreadPoolExecutor(2) as pool:
+            nbs = {nb: pool.submit(run_cards, 'notebook', nb)
+                   for nb in NOTEBOOKS if nb != NOTEBOOKS[2]}
+        runs.update({nb: f.result() for nb, f in nbs.items()})
+        return runs
+
+    with ThreadPoolExecutor(6) as pool:
+        lanes = [pool.submit(f) for f in (
+            lane_notebook3, lane_full_width, lane_floquet, lane_kagome_syk,
+            lane_mbl_reference, lane_mbl_one_notebooks)]
+    runs = {}
+    for lane in lanes:
+        runs.update(lane.result())
+    runs['lanes_s'] = time.perf_counter() - t0
+    return runs
+
+
+def phase_cards(examples, reference, tutorial, card):
+    """Phase cards: the runs of :func:`cards_runs` (none on one card:
+    nothing to do) held to the one-card phases:
+
+    * floquet L=24 (whole, and the resumed 6 + 9) and kagome '24' against
+      phase examples' one-card runs (``examples``; 1e-10 relative,
+      kagome's E0 1e-9); syk's C finite (its state is drawn unseeded, so it
+      is no yardstick); mbl against its ``--cards 1`` run (1e-10); the XOR
+      and diagonal kernels launched on every card (floquet, syk) and the
+      ELL kernel (mbl);
+    * floquet at L=27: each card's peak, the norm after each cycle (within
+      CARDS_NORM_TOL of 1), the seconds per cycle and each card's XOR and
+      diagonal kernel launches;
+    * the reference files: every test passes, with counts per file equal
+      to phase reference_suite's (``reference``);
+    * the notebooks: the output equal to phase tutorial's card run cell by
+      cell (``tutorial``; ``compare(worlds_differ=True)``).
+
+    Returns the phase's record, with the launches over ranks of each
+    kernel summed over the ranks and runs, or None on one card."""
+    runs = cards_runs()
+    if runs is None:
+        return None
+    import numpy as np
+    import torch
+    from tests.torch_reference_suite import UNCHANGED
+    from tests.torch_tutorial_reference import NOTEBOOKS, compare
+    n = torch.cuda.device_count()
+    lanes_s = runs.pop('lanes_s')
+
+    faults, checks = [], {}
+    over = {k: r for k, r in runs.items() if r['world'] > 1}
+    for name, rec in runs.items():
+        if rec['jax_imported']:
+            faults.append(f'{name} imported jax')
+    for name, rec in over.items():
+        if rec['world'] != n:
+            faults.append(f'{name} ran on {rec["world"]} ranks, not {n}')
+
+    def hold(name, got, want, rtol=CARDS_RTOL):
+        ok, err = _cards_close(got, want, rtol)
+        checks[name] = err
+        if not ok:
+            faults.append(f'{name}: {err:.3e} from the one-card run')
+
+    # the examples
+    fl = [_cards_numbers(runs[k]['lines']) for k in
+          ('floquet24', 'floquet24_part', 'floquet24_resumed')]
+    if len(fl[0]) != 10 * 27:
+        faults.append(f'floquet24 printed {len(fl[0])} numbers')
+    hold('floquet24_resumed_vs_whole', fl[1] + fl[2], fl[0])
+    for k in ('floquet24', 'floquet24_part', 'floquet24_resumed',
+              'floquet27', 'syk32'):
+        if k in runs and not min(runs[k]['launches']['xor_apply']) > 0:
+            faults.append(f'{k}: a card launched no XOR kernel')
+    for k in ('floquet24', 'floquet27'):
+        if k in runs and not min(runs[k]['launches']['xor_diagonal']) > 0:
+            faults.append(f'{k}: a card built no diagonal stream')
+    c = _cards_numbers(runs['syk32']['lines'])
+    if not (len(c) == 3 and np.isfinite(c).all()):
+        faults.append(f'syk32: {c}')
+    hold('mbl12_vs_one_card', _cards_numbers(runs['mbl12']['lines']),
+         _cards_numbers(runs['mbl12_one_card']['lines']))
+    if not min(runs['mbl12']['launches']['ell_apply']) > 0:
+        faults.append('mbl12: a card launched no ELL kernel')
+    hold('floquet24_vs_one_card', fl[0],
+         _cards_numbers(examples['lines']['floquet24']))
+    hold('kagome24_vs_one_card', _cards_numbers(runs['kagome24']['lines']),
+         _cards_numbers(examples['lines']['kagome24']), KAGOME_TOL)
+
+    # floquet at L=27 over four cards or more
+    full = None
+    if 'floquet27' in runs:
+        r = runs['floquet27']
+        rows = [i for i, line in enumerate(r['lines'])
+                if line and not line[0].isalpha()]
+        stamps = [r['line_s'][i] for i in rows]
+        norm_err = [abs(x - 1) for x in r['norms']]
+        full = {'L': 27, 'dtype': 'float64', 'cycles': len(r['norms']),
+                'vector_gb': 2 * 8 * 2**27 / 1e9,
+                'peak_gb_per_card': r['peak_gb'],
+                'norm_minus_1': [x - 1 for x in r['norms']],
+                'cycle_s': np.diff(stamps).tolist(),
+                'first_row_s': stamps[0] if stamps else None,
+                'xor_launches_per_card': r['launches']['xor_apply'],
+                'diag_builds_per_card': r['launches']['xor_diagonal'],
+                'seconds': r['run_s']}
+        if not (len(norm_err) == 2 and max(norm_err) <= CARDS_NORM_TOL
+                and len(rows) == 3):
+            faults.append(f'floquet27: norms {r["norms"]}, {len(rows)} rows')
+    else:
+        full = {'ran': False, 'why': f'L=27 in float64 needs four cards; '
+                                     f'this machine has {n}'}
+
+    # the reference files
+    files = runs['reference']['files']
+    if len(files) != len(UNCHANGED) or runs['reference']['pytest_exit'] or \
+            any(f['failed'] or f['passed'] != f['collected'] - f['skipped']
+                - f['excluded'] for f in files):
+        faults.append(f'reference files: {files}')
+    keys = ('reference_file', 'collected', 'passed', 'skipped', 'excluded',
+            'failed')
+    one = [{k: f[k] for k in keys} for f in reference['file_records']]
+    if [{k: f[k] for k in keys} for f in files] != one:
+        faults.append('reference files: counts differ from one card\'s')
+    if not all(min(v) > 0 for v in runs['reference']['launches'].values()):
+        faults.append(f'reference files: launches '
+                      f'{runs["reference"]["launches"]}')
+
+    # the tutorial
+    mismatches = {}
+    for nb in NOTEBOOKS:
+        bad = compare('\n'.join(runs[nb]['lines']), tutorial['card'][nb], nb,
+                      against_jax=False, worlds_differ=True)
+        if bad:
+            mismatches[nb] = bad[:5]
+            faults.append(f'{nb}: {bad[:3]}')
+
+    launches = {k: int(sum(sum(r['launches'][k]) for r in over.values()))
+                for k in ('xor_apply', 'xor_diagonal', 'ell_apply')}
+    out = {'phase': 'cards', 'cards': n, 'nvidia_smi': card,
+           'lanes_s': lanes_s, 'threads_per_rank': int(CARDS_THREADS),
+           'rel_err': checks, 'full_width': full,
+           'tutorial_mismatches': mismatches,
+           'launches_all_ranks': launches,
+           'runs': {k: {'world': r['world'], 'run_s': r['run_s'],
+                        'seconds': r['seconds'], 'peak_gb': r['peak_gb'],
+                        'launches': r['launches']}
+                    for k, r in runs.items()},
+           'kagome24_lines': runs['kagome24']['lines'],
+           'mbl12_lines': runs['mbl12']['lines'],
+           'syk32_lines': runs['syk32']['lines']}
+    emit(out)
+    if faults:
+        raise RuntimeError('phase cards: ' + '; '.join(faults))
     return out
 
 
@@ -4107,9 +4545,14 @@ def main():
         t0 = time.perf_counter()
         out = phase(*args)
         seconds[phase.__name__] = time.perf_counter() - t0
+        # a trail that a run cut short still leaves
+        emit({'phase_done': phase.__name__,
+              'seconds': seconds[phase.__name__],
+              'since_start_s': time.perf_counter() - t_start})
         return out
 
     card = run(phase_env)
+    run(phase_draw)
     rows = run(phase_kernel)
     sharded_rows = run(phase_kernel_sharded, rows)
     engines = run(phase_sector)
@@ -4140,13 +4583,14 @@ def main():
     dist_recs = run(phase_distributed, xp_eval0)
     dist_rec = dist_recs[0]
     multinode = run(phase_multinode, dist_rec, xp_eval0, card)
-    run(phase_examples)
+    examples = run(phase_examples)
     # the tutorial's CPU runs need no card: they go beside the reference
     # suite, after the examples' host-timed sections
     with ThreadPoolExecutor(6) as tutorial_pool:
         tutorial_cpu = start_tutorial_cpu(tutorial_pool)
-        run(phase_reference_suite)
-        run(phase_tutorial, tutorial_cpu)
+        reference = run(phase_reference_suite)
+        tutorial = run(phase_tutorial, tutorial_cpu)
+    cards = run(phase_cards, examples, reference, tutorial, card)
     emit({'phase_seconds': seconds,
           'total_s': time.perf_counter() - t_start})
     # the sharded ELL route's launches on the main path: the evolve over
@@ -4165,6 +4609,11 @@ def main():
     if multinode is not None:
         xor_shard_launches += multinode['launches_all_ranks']
         diag_builds += multinode['diag_builds_all_ranks']
+    if cards is not None:
+        # the runs over every card (phase cards): each rank's launches
+        xor_shard_launches += cards['launches_all_ranks']['xor_apply']
+        diag_builds += cards['launches_all_ranks']['xor_diagonal']
+        shard_launches += cards['launches_all_ranks']['ell_apply']
     if not diag_builds > 0:
         raise RuntimeError('the main path built no diagonal stream')
 
@@ -4312,5 +4761,7 @@ if __name__ == '__main__':
         phase_tutorial()
     elif sys.argv[1:2] == [CHILD_NOTEBOOK]:
         child_notebook(sys.argv[2], (sys.argv[3:] or [None])[0])
+    elif sys.argv[1:2] == [CHILD_CARDS]:
+        child_cards(sys.argv[2], sys.argv[3:])
     else:
         main()

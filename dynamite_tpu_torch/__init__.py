@@ -62,12 +62,17 @@ class _Config:
 
     # -- one-shot initialization ------------------------------------------
 
-    def initialize(self, precision=None, device=None, slepc_args=None,
-                   version_check=None, gpu=None):
-        """Initialize the configuration.
+    def initialize(self, precision=None, platform=None, mesh_shape=None,
+                   slepc_args=None, version_check=None, gpu=None, *,
+                   device=None):
+        """Initialize the configuration, with the JAX package's signature.
 
         Only the first call has any effect; it is called automatically (with
-        defaults) the first time device computation is needed.
+        defaults) the first time device computation is needed. Under a
+        launcher that names several processes (torchrun, srun, mpirun, or
+        ``python -m dynamite_tpu_torch.switch --cards N``) it also starts
+        the process group (``parallel.multihost.initialize()``), so a
+        script written for one process needs no call of its own.
 
         Parameters
         ----------
@@ -75,22 +80,66 @@ class _Config:
             'single' (float32 planes) or 'double' (float64 planes).
             Defaults to 'double'.
 
-        device : str or torch.device, optional
+        platform : str, optional
+            The JAX package's device choice: 'cpu' sets ``device='cpu'``,
+            'gpu' or 'cuda' the CUDA device; 'tpu' raises (this port runs
+            on CUDA cards). Defaults to the CUDA device.
+
+        mesh_shape : tuple, optional
+            The number of cards the run spans, ``prod(mesh_shape)``: one
+            process per card. Raises unless the process group has that
+            many ranks (start them with ``python -m
+            dynamite_tpu_torch.switch --cards N`` or a launcher). Defaults
+            to the ranks the run was started with.
+
+        device : str or torch.device, keyword only
             Where states and operator tables live. Defaults to the CUDA
             device; without one, the first device computation raises
-            unless the CPU was asked for (``device='cpu'`` here, or
-            ``config.device = 'cpu'`` before it).
-            ``parallel.multihost.initialize()`` pins it to this rank's GPU,
-            ``cuda:{LOCAL_RANK}``.
+            unless the CPU was asked for (``device='cpu'`` or
+            ``platform='cpu'`` here, or ``config.device = 'cpu'`` before
+            it). ``parallel.multihost.initialize()`` pins it to this rank's
+            GPU, ``cuda:{LOCAL_RANK}``.
 
         slepc_args, version_check, gpu :
             Accepted for call-compatibility with the reference; ignored.
         """
         if self.initialized:
             raise RuntimeError('config.initialize() can only be called once.')
+        if platform is not None:
+            kind = {'cpu': 'cpu', 'gpu': 'cuda', 'cuda': 'cuda'}.get(
+                str(platform).lower())
+            if kind is None:
+                raise ValueError(
+                    f'platform {platform!r}: dynamite_tpu_torch runs on '
+                    "CUDA cards ('gpu' or 'cuda') or on the CPU ('cpu'); "
+                    'the TPU is the JAX package\'s (dynamite_tpu)')
+            if device is not None and _device_type(device) != kind:
+                raise ValueError(f'platform {platform!r} and device '
+                                 f'{device!r} disagree')
+            if kind == 'cpu':
+                device = 'cpu'
+            elif device is None:
+                self._device = None  # the CUDA device, checked at first use
         if device is not None:
             self.device = device
         self._initialize(precision=precision)
+        if mesh_shape is not None:
+            self._check_cards(mesh_shape)
+
+    def _check_cards(self, mesh_shape):
+        """Raise unless the run has ``prod(mesh_shape)`` ranks."""
+        from math import prod
+        from .parallel import multihost
+        shape = (mesh_shape,) if isinstance(mesh_shape, int) else \
+            tuple(mesh_shape)
+        n, world = prod(shape), multihost.world_size()
+        if n != world:
+            raise RuntimeError(
+                f'mesh_shape {shape} asks for {n} card(s), one process '
+                f'each, but this run has {world} process(es): start it as '
+                f'python -m dynamite_tpu_torch.switch --cards {n} SCRIPT '
+                f'(or a launcher: torchrun --standalone --nproc-per-node '
+                f'{n} SCRIPT)')
 
     def _initialize(self, precision=None):
         if self.initialized:
@@ -112,6 +161,11 @@ class _Config:
         torch.backends.cudnn.allow_tf32 = False
 
         self.initialized = True
+        # the JAX package needs no call to span every chip of a host; here
+        # each card is a process, and a launcher's environment that names
+        # several makes the first use of the port join their group
+        from .parallel import multihost
+        multihost.join_launch()
 
     # -- global defaults ---------------------------------------------------
 
@@ -165,6 +219,11 @@ class _Config:
         set. Without one it raises: the port never falls back to the CPU
         on its own."""
         self._initialize()
+        return self._resolve_device()
+
+    def _resolve_device(self):
+        """:attr:`device` without initializing the configuration
+        (``parallel.multihost.initialize`` leaves the precision open)."""
         if self._device is None:
             import torch
             if not torch.cuda.is_available():
@@ -193,6 +252,11 @@ class _Config:
         """The torch dtype of each re/im plane."""
         import torch
         return torch.float64 if self.precision == 'double' else torch.float32
+
+
+def _device_type(device):
+    import torch
+    return torch.device(device).type
 
 
 config = _Config()

@@ -8,8 +8,10 @@ dynamite_tpu_torch.solvers).
 
 With a process group up (``parallel.multihost.initialize``), every rank
 calls these together on its own rows; the solvers' reductions are
-all-reduced, so every rank takes the same host decisions and ends with the
-same ``last_solve_stats``.
+all-reduced, so every rank takes the same host decisions (and raises
+``MaxIterationsError`` or ``ConvergenceError`` together) and counts the
+same iterations. A solve that completes leaves rank 0's
+``last_solve_stats`` on every rank, its wall times included.
 """
 
 import time
@@ -21,6 +23,7 @@ import torch
 
 from . import config
 from .ops import msc as msc_tools
+from .parallel import multihost
 from .solvers.eigs import eigsolve_trlanczos, ritz_vectors
 from .solvers.expmv import (ConvergenceError, MaxIterationsError, expmv,
                              initial_tstep)
@@ -53,7 +56,6 @@ def _maybe_profile(name):
         return
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
-    from .parallel import multihost
     activities = [ProfilerActivity.CPU]
     if config.device.type == 'cuda':
         activities.append(ProfilerActivity.CUDA)
@@ -125,7 +127,8 @@ def evolve(H, state, t, result=None, tol=None, ncv=None, algo=None,
                             tol=tol, max_its=max_its, stats=stats)
     result.set_initialized()
     global last_solve_stats
-    last_solve_stats = stats
+    # rank 0's on every rank: the counters agree already, the wall times not
+    last_solve_stats = multihost.broadcast_object(stats)
     return result
 
 
@@ -192,7 +195,7 @@ def eigsolve(H, getvecs=False, nev=1, which='lowest', target=None, tol=None,
             kops, dim, dtype, device, nev=nev, which=which, tol=tol,
             max_restarts=max_its, stats=stats)
     global last_solve_stats
-    last_solve_stats = stats
+    last_solve_stats = multihost.broadcast_object(stats)
 
     if not getvecs:
         return np.asarray(evals, dtype=float)
@@ -253,10 +256,12 @@ def _eigsolve_target(H, dim, nev, target, tol, getvecs, max_its, ncv,
                     H, dim, nev_f, target, tol, max_its, ncv, subspace,
                     dtype, device, outer)
         with _phase(stats, 'extract_s'):
-            return _rayleigh_ritz_extract(H, states, target, nev, getvecs,
-                                          stats=extract)
+            result = _rayleigh_ritz_extract(H, states, target, nev, getvecs,
+                                            stats=extract)
     finally:
         stats.update(_target_stats(method, outer, inner, extract))
+    stats.update(multihost.broadcast_object(stats))
+    return result
 
 
 def _target_stats(method, outer, inner, extract):

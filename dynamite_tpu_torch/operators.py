@@ -396,10 +396,12 @@ class Operator:
                             '<Operator from bytes>'))
 
     def save(self, filename):
-        """Write the serialized terms to ``filename``: rank 0 writes, and
-        every rank waits until it has (a collective: every rank calls it;
-        the file is read back where it lies, a shared filesystem across
-        hosts)."""
+        """Write the serialized terms to ``filename``: rank 0 writes, once
+        every rank is done with what came before (an earlier save's file,
+        which this one may overwrite, still being read), and every rank
+        waits until it has (a collective: every rank calls it; the file is
+        read back where it lies, a shared filesystem across hosts)."""
+        multihost.barrier('operator_save_begin')
         if multihost.rank() == 0:
             with open(filename, 'wb') as f:
                 f.write(self.serialize())

@@ -12,8 +12,11 @@ Typical driver, started by any of the launchers :func:`initialize` reads:
     multihost.initialize()      # NCCL on the GPUs, gloo on the CPU
     ... build operators and states as usual; each rank holds its rows ...
 
-Without :func:`initialize` nothing changes: world size 1, rank 0, and every
-helper here is a no-op.
+The call is optional: under a launcher's complete environment that names
+several processes, the port's first use (:func:`join_launch`) calls
+:func:`initialize` itself, as the JAX package spans every chip of a
+host with no call. Without a launcher nothing changes: world size 1, rank
+0, and every helper here is a no-op.
 """
 
 import os
@@ -35,11 +38,60 @@ def is_initialized():
 
 
 def rank():
+    join_launch()
     return dist.get_rank() if is_initialized() else 0
 
 
 def world_size():
+    join_launch()
     return dist.get_world_size() if is_initialized() else 1
+
+
+_JOIN = {'done': False}
+
+
+def join_launch():
+    """Once a process: under a launcher's complete environment that names
+    several processes (:func:`launch_to_join`), start the group
+    (:func:`initialize`) unless one is up. Called at the first question
+    about the layout (:func:`rank`, :func:`world_size`) and at the port's
+    first use of the device (``config._initialize``), so a script written
+    for one process, which never calls :func:`initialize`, runs as one rank
+    of the group."""
+    if _JOIN['done']:
+        return
+    _JOIN['done'] = True
+    if launch_to_join() is not None and not is_initialized():
+        initialize()
+        # a group nobody tears down can abort the process at its exit
+        import atexit
+        atexit.register(shutdown)
+
+
+def launch_to_join(env=None):
+    """The :class:`Launch` that the port's first use joins by itself, or
+    None where it runs as one process: no launcher, a world of one, a
+    SLURM batch step (``SLURM_PROCID`` without ``SLURM_STEP_ID`` or
+    ``SLURM_STEP_NODELIST``: ``python script.py`` inside an ``sbatch``
+    job), or an environment that lacks a value the group needs (a warning
+    says which; an explicit :func:`initialize` raises on it)."""
+    env = os.environ if env is None else env
+    torchrun = 'RANK' in env or 'WORLD_SIZE' in env
+    if (not torchrun and 'SLURM_PROCID' in env
+            and 'SLURM_STEP_ID' not in env
+            and 'SLURM_STEP_NODELIST' not in env):
+        return None
+    try:
+        launch = detect_launch(env)
+        if launch is not None and launch.host is None:
+            _need(env, 'torchrun', 'MASTER_ADDR', 'MASTER_PORT')
+    except ValueError as e:
+        import warnings
+        warnings.warn(f'{e}; running as one process')
+        return None
+    if launch is None or launch.world_size <= 1:
+        return None
+    return launch
 
 
 class Launch(NamedTuple):
@@ -189,6 +241,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
         if a is not None and b is not None:
             raise TypeError(f'initialize() got both {ours} and {theirs}, '
                             f'two spellings of one value')
+    # the first use of the port joins a launcher's group by itself
+    # (join_launch); a second start would fail
+    _JOIN['done'] = True
     if is_initialized():
         return
     if coordinator_address is not None:
@@ -211,7 +266,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
         raise ValueError(f'initialize() without {", ".join(missing)}, and no '
                          f'launcher environment gives it')
 
-    device = config.device
+    # the device without initializing config: precision stays open, as
+    # the JAX package's initialize() leaves it
+    device = config._resolve_device()
     if device.type == 'cuda':
         device = _card(launch.local_rank if launch is not None
                        else rank % torch.cuda.device_count())
@@ -240,7 +297,14 @@ def broadcast_from_host0(value_array):
     rank gets rank 0's."""
     if world_size() == 1:
         return value_array
-    box = [np.asarray(value_array)]
+    return broadcast_object(np.asarray(value_array))
+
+
+def broadcast_object(obj):
+    """Rank 0's picklable ``obj`` on every rank (a collective)."""
+    if world_size() == 1:
+        return obj
+    box = [obj]
     dist.broadcast_object_list(box, src=0, device=_comm_device())
     return box[0]
 
@@ -319,11 +383,12 @@ def rows_to_rank0(t, dim, chunk):
             yield first + start, piece
 
 
-def rank_seed(seed):
-    """The generator seed of this rank's rows of a random vector: ``seed``
-    itself on rank 0, so one process draws what it drew before a process
-    group existed, and a seed of its own on every other rank."""
-    return (int(seed) + rank() * 0x9E3779B97F4A7C15) % 2**63
+def host_id():
+    """The name of this rank's host: ``NCCL_HOSTID`` where set (NCCL's own
+    override, which tells apart nodes emulated on one machine), else the
+    host name."""
+    import socket
+    return os.environ.get('NCCL_HOSTID') or socket.gethostname()
 
 
 def allreduce_sum_(t):

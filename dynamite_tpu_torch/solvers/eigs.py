@@ -11,22 +11,18 @@ symmetric arrowhead+tridiagonal matrix) is solved on the host with numpy.
 import numpy as np
 import torch
 
-from ..parallel import mesh, multihost
+from ..ops import draw
+from ..parallel import mesh
 from . import krylov
 from .expmv import MaxIterationsError
 
 
 def random_start(dim, dtype, device, seed=0):
     """Normalized random start vector: this rank's (2, local_dim) rows of a
-    space of dimension ``dim``, drawn on the device from a
-    ``torch.Generator`` seeded with (seed, rank) and normalized over all
-    ranks, its pad rows 0 (``parallel.mesh``). The vector depends on the
-    world size."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(multihost.rank_seed(seed))
-    w = torch.randn((2, mesh.local_dim(dim)), generator=gen, dtype=dtype,
-                    device=device)
-    mesh.zero_pads_(w, dim)
+    space of dimension ``dim``, each row drawn from (seed, row) alone
+    (:func:`..ops.draw.normal_rows`) and normalized over all ranks, its pad
+    rows 0 (``parallel.mesh``). The vector is the same at any world size."""
+    w = draw.normal_rows(seed, dim, dtype, device)
     return w / krylov.norm(w)
 
 

@@ -21,7 +21,7 @@ import torch
 
 from . import config, subspaces
 from .utils import validate
-from .ops import cvec
+from .ops import cvec, draw
 from .parallel import mesh, multihost
 
 # the subspace metadata of a saved state names its classes under the JAX
@@ -229,23 +229,19 @@ class State:
 
     def set_random(self, seed=None, normalize=True):
         """Normalized complex Gaussian random state, drawn on the device
-        from a ``torch.Generator`` seeded with ``seed`` (a fresh random seed
-        from rank 0 when None). Each rank draws its rows from a generator
-        seeded with (seed, rank), so the state depends on the world size,
-        as the JAX package's depends on its mesh. The same seed and world
-        size give the same state on the same device type; it does not
-        reproduce the JAX package's random stream. Pad rows are 0 whatever
-        the generator draws there."""
+        from ``seed`` (a fresh random seed from rank 0 when None). Each row's
+        values are a function of (seed, row) alone (:mod:`.ops.draw`), so
+        the state is the same for any world size, as the JAX package's is
+        for any device count: each rank computes only its own rows, bitwise
+        those of one rank; the norm's sum over ranks may round differently.
+        It does not reproduce the JAX package's random stream. Pad rows are
+        0."""
         if seed is None:
             seed = int(multihost.broadcast_from_host0(np.asarray(
                 [int.from_bytes(urandom(4), 'big', signed=False)],
                 dtype=np.int64))[0])
-        device = config.device
-        gen = torch.Generator(device=device)
-        gen.manual_seed(multihost.rank_seed(seed))
-        data = torch.randn((2, self.storage_dim), generator=gen,
-                           dtype=config.real_dtype, device=device)
-        mesh.zero_pads_(data, len(self))
+        data = draw.normal_rows(seed, len(self), config.real_dtype,
+                                config.device)
         if normalize:
             data = cvec.scale_real(data, 1.0 / float(cvec.norm(data)))
         self._data = data
@@ -452,10 +448,13 @@ class State:
         SAVE_CHUNK-row pieces, each rank's valid rows sent to rank 0 one
         piece at a time (:func:`.parallel.multihost.rows_to_rank0`), so
         host memory stays bounded and pad rows never reach the file. The
-        save ends with a barrier, so no rank reads the file before it is
-        written (a collective: every rank calls it)."""
+        save begins with a barrier, so rank 0 does not overwrite a file
+        another rank is still reading (an earlier save's, loaded by
+        ``from_file``), and ends with one, so no rank reads the file before
+        it is written (a collective: every rank calls it)."""
         self.assert_initialized()
         dim = len(self)
+        multihost.barrier('state_save_begin')
         f = None
         try:
             if multihost.rank() == 0:

@@ -81,10 +81,14 @@ def get_memory_usage(group_by='all', max_usage=False):
     peak since :func:`track_memory` (``max_memory_allocated``). 0 on the
     CPU.
 
-    group_by : 'rank' (this process), 'node' (alias of rank), or 'all'
-        (summed over the ranks of the process group).
+    group_by : 'rank' (this process), 'node' (summed over the ranks on
+        this rank's host, :func:`.parallel.multihost.host_id`: the JAX
+        package's process, which holds every chip of its host), or 'all'
+        (summed over the ranks of the process group). 'node' and 'all' are
+        collectives: every rank calls them.
     max_usage : report the peak instead of the current value.
     """
+    import zlib
     import torch
     if group_by not in ('rank', 'node', 'all'):
         raise ValueError("group_by must be 'rank', 'node', or 'all'")
@@ -96,15 +100,23 @@ def get_memory_usage(group_by='all', max_usage=False):
         else:
             value = torch.cuda.memory_stats(device).get(
                 'allocated_bytes.all.current', 0)
-    if group_by == 'all':
-        value = int(np.sum(multihost.allgather_host_values(
-            np.array([value], dtype=np.int64))))
+    if group_by != 'rank':
+        host = zlib.crc32(multihost.host_id().encode())
+        ranks = multihost.allgather_host_values(
+            np.array([host, value], dtype=np.int64))
+        if group_by == 'node':
+            ranks = ranks[ranks[:, 0] == host]
+        value = int(np.sum(ranks[:, 1]))
     return value / 1e9
 
 
 def MPI_COMM_WORLD():
     """API parity shim: a tiny object with .rank/.size mapped to the process
-    group's rank and world size."""
+    group's rank and world size. The JAX package maps them to its process
+    index and count, 1 on one host, where one process drives every chip;
+    here each card is a process of its own, so .size counts the cards'
+    processes (the original dynamite's one MPI rank per GPU), and
+    ``.rank == 0`` picks one printer among them."""
 
     class _Comm:
         rank = multihost.rank()

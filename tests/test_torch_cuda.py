@@ -1071,3 +1071,70 @@ def test_floquet_example_on_card(card):
     assert got.shape == want.shape == (4, 15)
     assert np.max(np.abs(got - want)) < 1e-10
     assert recs['']['launches'] > 0 and recs['cpu']['launches'] == 0
+
+
+# the counter-based random draw (ops/draw.py) on the card against the CPU:
+# one (seed, row) function, each device's own log, sqrt, cos and sin
+# (each within a few ulps), so float64 agrees within DRAW_F64_RTOL of the
+# largest entry, and float32, the float64 values rounded once, within one
+# float32 ulp of it
+DRAW_F64_RTOL = 1e-14
+DRAW_F32_RTOL = 2.0 ** -23
+
+
+@pytest.mark.parametrize('dtype,rtol', [(torch.float64, DRAW_F64_RTOL),
+                                        (torch.float32, DRAW_F32_RTOL)])
+def test_random_draw_on_card_matches_cpu(card, dtype, rtol):
+    from dynamite_tpu_torch.ops.draw import normal_rows
+    dim = (1 << 20) + 3
+    got = normal_rows(42, dim, dtype, card, 0, 1).cpu()
+    want = normal_rows(42, dim, dtype, torch.device('cpu'), 0, 1)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= rtol * scale
+    # a state and the eigensolver's start vector on the card, each
+    # normalized there, against the CPU's
+    from dynamite_tpu_torch.solvers.eigs import random_start
+    sub = subspaces.Full(L=14)
+    psi = State(state='random', subspace=sub, seed=7).to_numpy()
+    saved = config._device
+    config.device = 'cpu'
+    try:
+        cpu = State(state='random', subspace=sub, seed=7).to_numpy()
+    finally:
+        config._device = saved
+    assert np.max(np.abs(psi - cpu)) <= DRAW_F64_RTOL * np.max(np.abs(cpu))
+    w = random_start(1 << 14, torch.float64, card, seed=3).cpu()
+    v = random_start(1 << 14, torch.float64, torch.device('cpu'), seed=3)
+    assert float((w - v).abs().max()) <= DRAW_F64_RTOL * float(v.abs().max())
+
+
+def test_switch_cards_on_nccl(card):
+    """The JAX package's floquet example through ``python -m
+    dynamite_tpu_torch.switch --cards 2`` (two ranks, one card each, NCCL)
+    against ``--cards 1`` at L=20, float64: every number of its table
+    within 1e-10 relative (+1e-12), printed once."""
+    import os
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA devices')
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(repo, 'examples', 'scripts', 'floquet',
+                          'run_floquet.py')
+    out = {}
+    for cards in (1, 2):
+        proc = subprocess.run(
+            [sys.executable, '-m', 'dynamite_tpu_torch.switch', '--cards',
+             str(cards), script, '-L', '20', '--n-cycles', '3'],
+            cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+            capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        out[cards] = proc.stdout.splitlines()
+
+    def numbers(lines):
+        return np.array([line.split(',') for line in lines[1:]], dtype=float)
+
+    assert len(out[2]) == len(out[1]) == 5 and out[2][0] == out[1][0]
+    got, want = numbers(out[2]), numbers(out[1])
+    assert got.shape == want.shape == (4, 23)
+    assert np.all(np.abs(got - want) <= 1e-10 * np.abs(want) + 1e-12)
