@@ -136,7 +136,15 @@ on the same sector discovered by Auto through the ELL kernel:
    process per card, NCCL), held to phases 14-16's one-card runs, and on
    four cards floquet at L=27 in float64 with each card's peak (see
    phase_cards). It runs after phase 16, alone, so the one-card phases'
-   records stay one card's. On one card it says it needs two.
+   records stay one card's. On one card it says it needs two;
+18. ``interactive``: the port's interactive session at every card (one
+   engine process per card, ``dynamite_tpu_torch/interactive.py``) through
+   its Jupyter kernel where ``ipykernel`` and ``jupyter_client`` import,
+   else its console (``switch --console``, which needs neither):
+   notebooks 2, 4 and 6, each in a fresh group, equal to phase 16's card
+   run, an interrupted ``H.dot`` loop on Parity(24) and the next cell's
+   norm, on four cards floquet's Hamiltonian on Full(27) in float64 for one
+   cycle, and no engine left behind (see phase_interactive).
 
 Each phase prints one JSON line (the sector and XOR-dense engines'
 records also one ``{"engines": [...]}`` line), with the device memory peak
@@ -182,6 +190,11 @@ runs the environment and the examples phase alone (see phase_examples).
 
 run the environment and phase reference_suite, or phase tutorial, alone.
 
+    python3 chip_smoke.py --interactive
+
+runs the environment, the card runs of notebooks 2, 4 and 6 and phase
+interactive alone (see interactive_only).
+
     python3 chip_smoke.py --diagonal [TREE ...]
 
 times the diagonal kernel per call and alone on localized(24),
@@ -216,6 +229,7 @@ REFERENCE_ONLY = '--reference-suite'
 CHILD_NOTEBOOK = '--child-notebook'
 TUTORIAL_ONLY = '--tutorial'
 CHILD_CARDS = '--child-cards'
+INTERACTIVE_ONLY = '--interactive'
 
 # error bounds of the kernel against its plain version: max|dy| / max|y|.
 # Both sum the same terms in float arithmetic of the working type but in
@@ -3694,6 +3708,276 @@ def phase_cards(examples, reference, tutorial, card):
     return out
 
 
+# phase interactive: the session's notebooks over every card; the counts a
+# rank read after each of its runs (XOR launches, diagonal builds, ELL
+# launches, device peak, pid), gathered to rank 0, one list a rank
+SESSION_NOTEBOOKS = ('2-States.ipynb', '4-TimeEvolution.ipynb',
+                     '6-MatrixFree.ipynb')
+SESSION_COUNTS = '''\
+import json as _json, os as _os, numpy as _np, torch as _torch
+from dynamite_tpu_torch.ops.ell import ell_apply as _ell
+from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded as _xor,
+                                              xor_diagonal as _diag)
+from dynamite_tpu_torch.parallel import multihost as _mh
+_ranks = _mh.allgather_host_values(_np.array([
+    _xor.launches, _diag.launches, _ell.launches,
+    _torch.cuda.max_memory_allocated(), _os.getpid()], dtype=_np.float64))
+print(_json.dumps({'session_counts': _ranks.tolist()}))
+'''
+# an H.dot loop on Parity(24), interrupted after SESSION_INTERRUPT_S
+SESSION_SETUP = '''\
+from dynamite_tpu import config
+from dynamite_tpu.models import heisenberg
+from dynamite_tpu.subspaces import Parity
+from dynamite_tpu.states import State
+config.L = 24
+H = heisenberg()
+sub = Parity('even')
+H.add_subspace(sub)
+psi = State(state='random', subspace=sub, seed=0)
+psi.normalize()
+'''
+SESSION_LOOP = 'while True:\n    phi = H.dot(psi)\n'
+SESSION_INTERRUPT_S = 2.0
+SESSION_NORM_TOL = 1e-12
+# floquet's Hamiltonian (the example's defaults) on Full(27), float64, one
+# cycle (evolve for T, the X pulse); the example's own module, imported
+# through the switch's finder
+SESSION_FULL_WIDTH = '''\
+import os, sys, time
+sys.path.insert(0, os.path.join({repo!r}, 'examples', 'scripts', 'floquet'))
+from run_floquet import build_hamiltonian, domain_wall_state_str
+from dynamite_tpu import config
+from dynamite_tpu.operators import index_product, sigmax
+from dynamite_tpu.states import State
+config.L = 27
+H = build_hamiltonian(1.25, 1, 0.19, [0.21, 0.17, 0.13])
+X = index_product(sigmax())
+state = State(state=domain_wall_state_str(1, 27))
+tmp = state.copy()
+t0 = time.perf_counter()
+H.evolve(state, result=tmp, t=0.12)
+X.dot(tmp, result=state)
+norm = state.norm()
+print('cycle_s', time.perf_counter() - t0, 'norm_minus_1', norm - 1)
+'''
+SESSION_FULL_TOL = 1e-12
+
+
+def _session_counts(session):
+    """Each rank's counts (SESSION_COUNTS) in a session."""
+    out = session.run(SESSION_COUNTS)
+    ranks = json.loads(out.strip().splitlines()[-1])['session_counts']
+    keys = ('xor_apply', 'xor_diagonal', 'ell_apply')
+    return {'launches': {k: [int(r[i]) for r in ranks]
+                         for i, k in enumerate(keys)},
+            'peak_gb': [r[3] / 1e9 for r in ranks],
+            'pids': [int(r[4]) for r in ranks]}
+
+
+def _session_close(session, rec, faults, name):
+    """End a session (a console's end of input, or the kernel's Jupyter
+    shutdown); every engine must be gone. The console exits 0; the kernel
+    exits 0, or -SIGTERM from ``jupyter_client`` where ``ipykernel``'s own
+    exit blocked after its reply (``torch_session_client.Client.close``)."""
+    from tests.torch_session_client import Client, alive
+    engines = session.engines()
+    rec['exit_code'] = session.close()
+    left = [p for p in engines + rec.get('pids', []) if alive(p)]
+    rec['engines_left'] = left
+    ok = (0, -signal.SIGTERM) if isinstance(session, Client) else (0,)
+    if rec['exit_code'] not in ok or left:
+        faults.append(f'{name}: exit code {rec["exit_code"]}, engines left '
+                      f'{left}')
+
+
+def phase_interactive(tutorial, card):
+    """Phase interactive: the port's interactive session
+    (``dynamite_tpu_torch/interactive.py``) at every card of this machine,
+    one engine process per card. Where ``ipykernel`` and
+    ``jupyter_client`` import, through its Jupyter kernel (its kernelspec
+    installed under a temporary ``--prefix``, driven by
+    ``tests/torch_session_client.py::Client``), with a kernel restart
+    before each run after the first; else through its console (``python
+    -m dynamite_tpu_torch.switch --console`` through a pipe:
+    ``Console``), a new console a run, and the tests hold the kernel on
+    the CPU. One line says which front end ran and why.
+
+    * tutorial notebooks 2, 4 and 6 (cell 0 and ``switch.SUBSTITUTES`` fed
+      as ``switch.run_notebook`` does), each in a fresh group, rank 0's
+      output equal to phase tutorial's card run (``tutorial``) by
+      ``compare(worlds_differ=True)`` over several cards; notebook 3 (~116,000
+      MINRES iterations) is left out;
+    * after notebook 6, in its group: an ``H.dot`` loop on Parity(24)
+      interrupted after SESSION_INTERRUPT_S (SIGINT to the front end,
+      which sends it to every engine), whether the ranks were kept or
+      restarted, the seconds until the next cell answered, and that
+      cell's ``psi.norm()`` within SESSION_NORM_TOL of 1;
+    * on four cards or more, one cell of floquet's Hamiltonian on Full(27)
+      in float64 evolved one cycle, each card's peak and ‖ψ‖ − 1 within
+      SESSION_FULL_TOL;
+    * each group ended: no engine left.
+
+    Each rank's launches of the XOR kernel (its sharded route over several
+    cards) and diagonal builds are read in the session after each run.
+    Emits one line a run; returns the phase's record with the launches
+    summed over ranks and runs."""
+    import torch
+    from tests.torch_session_client import (Client, Console, alive,
+                                            error_text, install_spec,
+                                            run_notebook, session_env)
+    from tests.torch_tutorial_reference import compare
+    n = torch.cuda.device_count()
+    import shutil
+    import tempfile
+    try:
+        import ipykernel  # noqa: F401
+        import jupyter_client  # noqa: F401
+        front, why = 'kernel', 'ipykernel and jupyter_client import here'
+    except ImportError as e:
+        front, why = 'console', (f'{e} here; the console needs neither, '
+                                 f'and the CPU tests hold the kernel')
+    emit({'phase': 'interactive', 'front_end': front, 'why': why})
+    tmp = tempfile.mkdtemp(prefix='smoke_session_')
+    env = session_env(tmp, threads=str(max(1, os.cpu_count() // n)))
+    tut = os.path.join(REPO, 'examples', 'tutorial')
+    faults, runs = [], {}
+    kernel = None
+
+    def fresh(first):
+        """A fresh group of engines and the seconds it took: the first at
+        the default, every card (counted in a child process), the others
+        naming the count, which spares that child; a new console, or the
+        kernel started, then restarted."""
+        nonlocal kernel
+        if front == 'console':
+            console = Console([] if first else ['--cards', str(n)], tut, env)
+            return console, {'start_s': console.start_s}
+        if kernel is None:
+            install_spec(os.path.join(tmp, 'prefix'), env=env)
+            kernel = Client(os.path.join(tmp, 'prefix'), tut, env,
+                            timeout=900)
+            return kernel, {'start_s': kernel.start_s}
+        old = kernel.engines()
+        times = {'restart_s': kernel.restart()}
+        left = [p for p in old if alive(p)]
+        if left:
+            faults.append(f'the kernel restart left engines {left}')
+        return kernel, times
+
+    t_phase = time.perf_counter()
+    for nb in SESSION_NOTEBOOKS:
+        session, times = fresh(nb == SESSION_NOTEBOOKS[0])
+        out, cell_s = run_notebook(session, os.path.join(tut, nb))
+        rec = {'phase': 'interactive', 'run': nb, 'cards': n,
+               'front_end': front, **times, 'cell_s': cell_s,
+               **_session_counts(session)}
+        bad = compare(out, tutorial['card'][nb], nb, against_jax=False,
+                      worlds_differ=n > 1)
+        rec['mismatches'] = bad[:5]
+        if bad:
+            faults.append(f'{nb}: {bad[:3]}')
+        if nb.startswith('6-'):
+            t0 = time.perf_counter()
+            session.run(SESSION_SETUP)
+            rec['setup_s'] = time.perf_counter() - t0
+
+            def interrupt():
+                time.sleep(SESSION_INTERRUPT_S)
+                interrupt.at = time.perf_counter()
+                session.interrupt()
+            looped = session.execute(SESSION_LOOP, during=interrupt)
+            reply_s = time.perf_counter() - interrupt.at
+            err = error_text(looped)
+            restarted = re.search(r'were restarted \(the new group took '
+                                  r'([0-9.]+) s', err)
+            # the rule: kept, or the old group ended and a new one started,
+            # within GRACE_S + KILL_S (the new group's start apart)
+            start_s = float(restarted.group(1)) if restarted else 0.0
+            rec['interrupt'] = {
+                'outcome': 'restarted' if restarted else 'kept',
+                'reply_s': reply_s, 'new_group_start_s': start_s,
+                'keyboard_interrupt': 'KeyboardInterrupt' in err,
+                'notes': [line for line in err.splitlines()
+                          if line.startswith('dynamite_tpu_torch session')]}
+            if restarted:
+                session.run(SESSION_SETUP)
+            norm = float(session.run('print(psi.norm())').split()[-1])
+            rec['interrupt'].update(
+                next_cell_s=time.perf_counter() - interrupt.at,
+                norm_minus_1=norm - 1)
+            if abs(norm - 1) > SESSION_NORM_TOL:
+                faults.append(f'after the interrupt psi.norm() = {norm}')
+            if not restarted and not rec['interrupt']['keyboard_interrupt']:
+                faults.append('the interrupt raised no KeyboardInterrupt')
+            from dynamite_tpu_torch.switch import GRACE_S, KILL_S
+            if reply_s - start_s > GRACE_S + KILL_S:
+                faults.append(f'the interrupted cell answered after '
+                              f'{reply_s:.1f} s')
+            # the loop's launches: the group's counts now, less the
+            # notebook's where the group was kept (a restarted group counts
+            # from 0, and its predecessor's loop is not known)
+            after = _session_counts(session)
+            rec['pids'] = after['pids']
+            rec['interrupt']['peak_gb'] = after['peak_gb']
+            rec['loop_launches'] = {
+                k: [a - (0 if restarted else b) for a, b in
+                    zip(v, rec['launches'][k])]
+                for k, v in after['launches'].items()}
+        if front == 'console' or (nb == SESSION_NOTEBOOKS[-1] and n < 4):
+            _session_close(session, rec, faults, nb)
+        emit(rec)
+        runs[nb] = rec
+    if n >= 4:
+        session, times = fresh(False)
+        out = session.run(SESSION_FULL_WIDTH.format(repo=REPO))
+        words = out.split()
+        rec = {'phase': 'interactive', 'run': 'floquet27', 'cards': n,
+               'front_end': front, **times,
+               'cycle_s': float(words[words.index('cycle_s') + 1]),
+               'norm_minus_1': float(words[words.index('norm_minus_1') + 1]),
+               'vector_gb': 2 * 8 * 2**27 / 1e9,
+               **_session_counts(session)}
+        if abs(rec['norm_minus_1']) > SESSION_FULL_TOL:
+            faults.append(f'floquet27: norm - 1 = {rec["norm_minus_1"]}')
+        _session_close(session, rec, faults, 'floquet27')
+        emit(rec)
+        runs['floquet27'] = rec
+    else:
+        emit({'phase': 'interactive', 'run': 'floquet27', 'ran': False,
+              'why': f'L=27 in float64 needs four cards; this machine has '
+                     f'{n}'})
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: int(sum(sum(r['launches'][k])
+                           + sum(r.get('loop_launches', {}).get(k, []))
+                           for r in runs.values()))
+                for k in ('xor_apply', 'xor_diagonal', 'ell_apply')}
+    for name in ('4-TimeEvolution.ipynb', '6-MatrixFree.ipynb'):
+        if not min(runs[name]['launches']['xor_apply']) > 0:
+            faults.append(f'{name}: a rank launched no XOR kernel')
+    out = {'phase': 'interactive', 'front_end': front, 'cards': n,
+           'nvidia_smi': card, 'seconds': time.perf_counter() - t_phase,
+           'launches_all_ranks': launches,
+           'interrupt': runs['6-MatrixFree.ipynb']['interrupt']}
+    emit(out)
+    if faults:
+        raise RuntimeError('phase interactive: ' + '; '.join(faults))
+    return out
+
+
+def interactive_only():
+    """``python3 chip_smoke.py --interactive``: the environment, the card
+    runs of phase tutorial's notebooks 2, 4 and 6 (its yardstick) and
+    phase interactive."""
+    require_card_and_port()
+    card = phase_env()
+    tutorial = {'card': {nb: run_notebook_child(nb)['output']
+                         for nb in SESSION_NOTEBOOKS}}
+    t0 = time.perf_counter()
+    phase_interactive(tutorial, card)
+    emit({'phase_seconds': {'phase_interactive': time.perf_counter() - t0}})
+
+
 def group_costs(L=24):
     """``python3 chip_smoke.py --group-costs``: what one mask group costs
     the matvec kernel, by where its partner rows lie. Each set is a Full(L)
@@ -4591,6 +4875,7 @@ def main():
         reference = run(phase_reference_suite)
         tutorial = run(phase_tutorial, tutorial_cpu)
     cards = run(phase_cards, examples, reference, tutorial, card)
+    interactive = run(phase_interactive, tutorial, card)
     emit({'phase_seconds': seconds,
           'total_s': time.perf_counter() - t_start})
     # the sharded ELL route's launches on the main path: the evolve over
@@ -4614,6 +4899,16 @@ def main():
         xor_shard_launches += cards['launches_all_ranks']['xor_apply']
         diag_builds += cards['launches_all_ranks']['xor_diagonal']
         shard_launches += cards['launches_all_ranks']['ell_apply']
+    # the interactive session's engines (phase interactive): one card runs
+    # the one-device route, several the sharded one
+    session = interactive['launches_all_ranks']
+    if interactive['cards'] > 1:
+        xor_shard_launches += session['xor_apply']
+        shard_launches += session['ell_apply']
+    else:
+        launches['xor_apply'] += session['xor_apply']
+        ell_launches += session['ell_apply']
+    diag_builds += session['xor_diagonal']
     if not diag_builds > 0:
         raise RuntimeError('the main path built no diagonal stream')
 
@@ -4763,5 +5058,7 @@ if __name__ == '__main__':
         child_notebook(sys.argv[2], (sys.argv[3:] or [None])[0])
     elif sys.argv[1:2] == [CHILD_CARDS]:
         child_cards(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:] == [INTERACTIVE_ONLY]:
+        interactive_only()
     else:
         main()

@@ -262,7 +262,7 @@ def exchange(x_local, tables, bufs):
         ops.append(dist.P2POp(dist.irecv, buf, me ^ m_hi))
         srcs.append(buf)
     if ops:
-        for req in dist.batch_isend_irecv(ops):
+        for req in multihost.collective(dist.batch_isend_irecv, ops):
             req.wait()
         exchange.exchanges += len(ops) // 2
         exchange.bytes += len(ops) // 2 * x_local.numel() \
@@ -288,11 +288,11 @@ def all_gather_rows(x_local):
     x_local = x_local.contiguous()
     if dist.get_backend() == 'nccl':
         out = x_local.new_empty((world,) + tuple(x_local.shape))
-        dist.all_gather_into_tensor(out, x_local)
+        multihost.collective(dist.all_gather_into_tensor, out, x_local)
         x = out.transpose(0, 1).reshape(2, -1)
     else:
         parts = [torch.empty_like(x_local) for _ in range(world)]
-        dist.all_gather(parts, x_local)
+        multihost.collective(dist.all_gather, parts, x_local)
         x = torch.cat(parts, dim=1)
     all_gather_rows.gathers += 1
     all_gather_rows.bytes += (world - 1) * _nbytes(x_local)
@@ -314,7 +314,7 @@ def ring_pass(block):
     buf = torch.empty_like(block)
     ops = [dist.P2POp(dist.isend, block, (me + 1) % world),
            dist.P2POp(dist.irecv, buf, (me - 1) % world)]
-    for req in dist.batch_isend_irecv(ops):
+    for req in multihost.collective(dist.batch_isend_irecv, ops):
         req.wait()
     ring_pass.passes += 1
     ring_pass.bytes += _nbytes(block)

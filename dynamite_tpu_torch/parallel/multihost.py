@@ -287,6 +287,40 @@ def shutdown():
         dist.destroy_process_group()
 
 
+def collective(fn, *args, **kwargs):
+    """Post one collective step of the port, ``fn(*args, **kwargs)`` (a
+    ``torch.distributed`` call, or a function of a few that every rank
+    calls at the same step), and count it in ``collective.posted``. Every
+    rank takes the port's steps in the same order and counts each once,
+    whether it sends, receives or has no part in it, so the counts of the
+    ranks of a group are equal wherever no rank stopped short of a step
+    that another took: an interactive session (``interactive.py``) keeps
+    its ranks after an error only then, as no collective is left posted
+    that a later one would match.
+
+    A step is taken whole or not at all: while one runs
+    (``collective.depth`` > 0) the session's SIGINT handler does not raise
+    but sets ``collective.held``, and the KeyboardInterrupt is raised here
+    once the step is through. (A rank blocked in a step that another rank
+    never takes stays blocked; the session restarts the group.)"""
+    collective.depth += 1
+    try:
+        collective.posted += 1
+        out = fn(*args, **kwargs)
+    finally:
+        collective.depth -= 1
+        held = collective.held and not collective.depth
+        if held:
+            collective.held = False
+    if held:
+        raise KeyboardInterrupt
+    return out
+
+
+collective.posted = collective.depth = 0
+collective.held = False
+
+
 def _comm_device():
     from .. import config
     return config.device
@@ -305,7 +339,7 @@ def broadcast_object(obj):
     if world_size() == 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0, device=_comm_device())
+    collective(dist.broadcast_object_list, box, src=0, device=_comm_device())
     return box[0]
 
 
@@ -315,7 +349,7 @@ def allgather_host_values(value_array):
     if world_size() == 1:
         return np.asarray(value_array)[None]
     out = [None] * world_size()
-    dist.all_gather_object(out, np.asarray(value_array))
+    collective(dist.all_gather_object, out, np.asarray(value_array))
     return np.stack(out)
 
 
@@ -326,9 +360,9 @@ def barrier(name=None):
         device = _comm_device()
         try:
             if device.type == 'cuda':
-                dist.barrier(device_ids=[device.index])
+                collective(dist.barrier, device_ids=[device.index])
             else:
-                dist.barrier()
+                collective(dist.barrier)
         except RuntimeError as e:
             raise RuntimeError(f'barrier {name!r} failed on rank {rank()} of '
                                f'{world_size()}: {e}') from e
@@ -343,9 +377,9 @@ def gather_rows(t, to_all=True, dim=None):
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(world_size())]
         if to_all:
-            dist.all_gather(parts, t)
+            collective(dist.all_gather, parts, t)
         else:
-            dist.gather(t, parts if rank() == 0 else None, dst=0)
+            collective(dist.gather, t, parts if rank() == 0 else None, dst=0)
             if rank() != 0:
                 return None
         t = torch.cat(parts, dim=-1)
@@ -373,14 +407,21 @@ def rows_to_rank0(t, dim, chunk):
             piece = None
             if q == me:
                 piece = t[:, start:start + n]
-                if me != 0:
-                    dist.send(piece.contiguous(), dst=0)
             elif me == 0:
                 piece = t.new_empty((2, n))
-                dist.recv(piece, src=q)
+            collective(_piece_to_rank0, piece, q, me)
             if me == 0:
                 piece = piece.to('cpu', torch.float64).numpy()
             yield first + start, piece
+
+
+def _piece_to_rank0(piece, q, me):
+    """One piece of :func:`rows_to_rank0`: rank ``q`` sends it, rank 0
+    receives it, every other rank has no part in it."""
+    if q != 0 and q == me:
+        dist.send(piece.contiguous(), dst=0)
+    elif q != 0 and me == 0:
+        dist.recv(piece, src=q)
 
 
 def host_id():
@@ -395,12 +436,12 @@ def allreduce_sum_(t):
     """Sum a device tensor over ranks, in place; returns it. Enqueued on the
     device (NCCL) with no host synchronization."""
     if world_size() > 1:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        collective(dist.all_reduce, t, op=dist.ReduceOp.SUM)
     return t
 
 
 def allreduce_max_(t):
     """Max of a device tensor over ranks, in place; returns it."""
     if world_size() > 1:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        collective(dist.all_reduce, t, op=dist.ReduceOp.MAX)
     return t

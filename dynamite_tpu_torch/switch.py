@@ -4,10 +4,14 @@ Run code written for :mod:`dynamite_tpu` on this port, unchanged.
     python -m dynamite_tpu_torch.switch [--device cpu] [--cards N] SCRIPT [ARGS...]
     python -m dynamite_tpu_torch.switch [--device cpu] [--cards N] --pytest PATH... [OPTIONS]
     python -m dynamite_tpu_torch.switch [--device cpu] [--cards N] --notebook NB.ipynb
+    python -m dynamite_tpu_torch.switch [--device cpu] [--cards N] --console
 
 In a notebook or any other process, :func:`install` does the same for the
 rest of the process (``from dynamite_tpu_torch.switch import install;
 install()`` in place of a tutorial notebook's setup cell), on one card.
+``--console`` is a REPL, and ``dynamite_tpu_torch.interactive`` a Jupyter
+kernel, whose cells run on every card (one engine process per card; see
+that module).
 
 The code's ``import dynamite_tpu`` and every ``dynamite_tpu.x.y`` reach
 the very module objects of ``dynamite_tpu_torch`` and
@@ -528,8 +532,7 @@ def default_cards(device):
 
 
 def _on_cpu(device):
-    import torch
-    return device is not None and torch.device(device).type == 'cpu'
+    return device is not None and str(device).partition(':')[0] == 'cpu'
 
 
 def _free_port():
@@ -557,40 +560,61 @@ def _tail(path, n=8000):
         return ''
 
 
+def rank_env(cards):
+    """The environment every rank of a group of ``cards`` processes on this
+    host shares, as ``torchrun --standalone`` gives it (see the module
+    docstring): ``MASTER_ADDR``/``MASTER_PORT`` on a free port,
+    ``WORLD_SIZE``, cores / ``cards`` CPU threads (``OMP_NUM_THREADS``,
+    unless it is set), the repository on ``PYTHONPATH`` and the ranks'
+    sockets on the loopback. :func:`start_rank` adds the rank's own."""
+    env = dict(os.environ)
+    path = env.get('PYTHONPATH')
+    env.update(
+        MASTER_ADDR='127.0.0.1', MASTER_PORT=str(_free_port()),
+        WORLD_SIZE=str(cards), LOCAL_WORLD_SIZE=str(cards), GROUP_RANK='0',
+        OMP_NUM_THREADS=env.get('OMP_NUM_THREADS') or str(
+            max(1, len(os.sched_getaffinity(0)) // cards)),
+        PYTHONPATH=REPO + (os.pathsep + path if path else ''))
+    # one host: the ranks' sockets on the loopback
+    env.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    return env
+
+
+def start_rank(module_argv, env, rank, stdout=None, stderr=None,
+               stdin=None):
+    """Start ``python -m MODULE_ARGV`` as rank ``rank`` of the group whose
+    environment is ``env`` (:func:`rank_env`): ``RANK`` and ``LOCAL_RANK``
+    set, in a session of its own (so that :func:`_end` reaches what it
+    starts), killed when this process dies (PR_SET_PDEATHSIG)."""
+    return subprocess.Popen(
+        [sys.executable, '-m', *module_argv],
+        env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)), stdin=stdin,
+        stdout=stdout, stderr=stderr, start_new_session=True,
+        preexec_fn=_die_with_parent)
+
+
 def launch(cards, argv, device=None):
     """Run ``python -m dynamite_tpu_torch.switch ARGV`` as ``cards`` ranks of
     one host (see the module docstring); returns the run's exit code."""
-    threads = os.environ.get('OMP_NUM_THREADS') or str(
-        max(1, len(os.sched_getaffinity(0)) // cards))
     logs = tempfile.mkdtemp(prefix='dynamite_switch_')
-    base = dict(os.environ)
-    path = base.get('PYTHONPATH')
-    base.update(
-        MASTER_ADDR='127.0.0.1', MASTER_PORT=str(_free_port()),
-        WORLD_SIZE=str(cards), LOCAL_WORLD_SIZE=str(cards), GROUP_RANK='0',
-        OMP_NUM_THREADS=threads,
-        PYTHONPATH=REPO + (os.pathsep + path if path else ''))
-    # one host: the ranks' sockets on the loopback
-    base.setdefault('NCCL_SOCKET_IFNAME', 'lo')
-    base.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    env = rank_env(cards)
     backend = 'gloo' if _on_cpu(device) else 'nccl'
-    sys.stderr.write(f'switch: {cards} ranks ({backend}), {threads} CPU '
-                     f'thread(s) each; the output is rank 0\'s, the other '
-                     f'ranks\' goes to {logs}\n')
+    sys.stderr.write(f'switch: {cards} ranks ({backend}), '
+                     f'{env["OMP_NUM_THREADS"]} CPU thread(s) each; the '
+                     f'output is rank 0\'s, the other ranks\' goes to '
+                     f'{logs}\n')
     sys.stderr.flush()
     procs, files = [], []
     try:
         for r in range(cards):
-            env = dict(base, RANK=str(r), LOCAL_RANK=str(r))
             out = err = None
             if r > 0:
                 out = open(os.path.join(logs, f'rank{r}.out'), 'w')
                 err = open(os.path.join(logs, f'rank{r}.err'), 'w')
                 files += [out, err]
-            procs.append(subprocess.Popen(
-                [sys.executable, '-m', f'{PORT}.switch', *argv], env=env,
-                stdout=out, stderr=err, start_new_session=True,
-                preexec_fn=_die_with_parent))
+            procs.append(start_rank([f'{PORT}.switch', *argv], env, r,
+                                    out, err))
         failed, deadline = None, None
         while any(p.poll() is None for p in procs):
             if failed is None:
@@ -663,13 +687,24 @@ def main(argv=None):
                       help='run pytest over the arguments that follow')
     mode.add_argument('--notebook', action='store_true',
                       help='run the notebook given as the argument')
-    p.add_argument('script')
+    mode.add_argument('--console', action='store_true',
+                      help='a REPL whose statements run on every card '
+                           '(dynamite_tpu_torch/interactive.py)')
+    p.add_argument('script', nargs='?')
     p.add_argument('args', nargs=argparse.REMAINDER)
     args = p.parse_args(argv)
     if args.notebook and args.args:
         p.error('--notebook takes one notebook and no arguments')
     if args.cards is not None and args.cards < 1:
         p.error('--cards takes a positive number')
+    if args.console:
+        if args.script is not None:
+            p.error('--console takes no script')
+        # the console's front end imports no torch: ranks of its own
+        from . import interactive
+        return interactive.console(args.cards, args.device)
+    if args.script is None:
+        p.error('a script, --pytest paths or a --notebook is needed')
     launched = _launched()
     if launched is None:
         cards = args.cards or default_cards(args.device)
