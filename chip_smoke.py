@@ -1078,52 +1078,43 @@ def phase_sector(L=24):
     return recs
 
 
+# the port's counters (dynamite_tpu_torch.tracing) that ``counted`` reads,
+# by the names of its records
+COUNTERS = {'xor_apply': 'xor.launches',
+            'xor_diagonal': 'xor.diagonal_launches',
+            'sector_apply': 'sector.applies',
+            'sector_ring': 'sector.ring_applies',
+            'xor_dense_apply': 'xor_dense.applies',
+            'ell_apply': 'ell.launches',
+            'general_sweep': 'sweep.applies',
+            'minres_iterations': 'minres.iterations'}
+
+
 def counted(fn, what, engine='xor'):
-    """Run the main-path call ``fn`` with the kernels' launch counts set
-    to 0 just before it and read just after, so no check's own launch is
-    counted: ``xor_apply_sharded.launches`` (the one wrapper that launches
-    the matvec kernel) and ``xor_diagonal.launches`` (the diagonal stream's
-    builds, once per operator, dtype and layout), and beside them the
-    engines' applies (``sector_apply.applies``, ``xor_dense_apply.applies``,
-    ``general_sweep.applies``, the alpha ring's ``SectorRing.applies``;
-    torch ops, no kernel of their own), the ELL kernel's launches
-    (``ell_apply.launches``), and the MINRES iterations of a target solve
-    (``minres_solver.iterations``, one H apply each). Raises unless the
+    """Run the main-path call ``fn`` with the kernels' launch counts read
+    just before it and just after, so no check's own launch is counted
+    (the port's counters, ``COUNTERS``): ``xor.launches`` (the one wrapper
+    that launches the matvec kernel) and ``xor.diagonal_launches`` (the
+    diagonal stream's builds, once per operator, dtype and layout), and
+    beside them the engines' applies (``sector.applies``,
+    ``xor_dense.applies``, ``sweep.applies``, the alpha ring's
+    ``sector.ring_applies``; torch ops, no kernel of their own), the ELL
+    kernel's launches (``ell.launches``), and the MINRES iterations of a
+    target solve (``minres.iterations``, one H apply each). Raises unless the
     ``engine`` ('xor', 'sector', 'sector_ring', 'xor_dense', 'ell' or
     'sweep') ran at least once per matvec the solver counted, and, for any
     other engine, unless the XOR kernel did not run. Returns (fn's result,
     {name: count}, solver stats, wall seconds)."""
     import torch
-    from dynamite_tpu_torch import computations
-    from dynamite_tpu_torch.ops.apply import general_sweep
-    from dynamite_tpu_torch.ops.ell import ell_apply
-    from dynamite_tpu_torch.ops.sector_apply import sector_apply
-    from dynamite_tpu_torch.ops.sector_shard import SectorRing
-    from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded,
-                                                  xor_diagonal)
-    from dynamite_tpu_torch.ops.xor_dense import xor_dense_apply
-    from dynamite_tpu_torch.solvers.minres import minres_solver
+    from dynamite_tpu_torch import computations, tracing
     torch.cuda.synchronize()
-    xor_apply_sharded.launches = 0
-    xor_diagonal.launches = 0
-    sector_apply.applies = 0
-    SectorRing.applies = 0
-    xor_dense_apply.applies = 0
-    ell_apply.launches = 0
-    general_sweep.applies = 0
-    minres_solver.iterations = 0
+    before = tracing.counters()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {'xor_apply': xor_apply_sharded.launches,
-                'xor_diagonal': xor_diagonal.launches,
-                'sector_apply': sector_apply.applies,
-                'sector_ring': SectorRing.applies,
-                'xor_dense_apply': xor_dense_apply.applies,
-                'ell_apply': ell_apply.launches,
-                'general_sweep': general_sweep.applies,
-                'minres_iterations': minres_solver.iterations}
+    launches = {key: tracing.counter(name) - before.get(name, 0)
+                for key, name in COUNTERS.items()}
     stats = dict(computations.last_solve_stats)
     ran = launches[{'xor': 'xor_apply', 'sector': 'sector_apply',
                     'sector_ring': 'sector_ring',
@@ -1136,6 +1127,14 @@ def counted(fn, what, engine='xor'):
         raise RuntimeError(f'{what}: the XOR kernel ran on the {engine} '
                            'path')
     return out, launches, stats, seconds
+
+
+def exchanged(since=(0, 0)):
+    """The pairwise exchange's (pairs, bytes sent) counters, less
+    ``since``."""
+    from dynamite_tpu_torch import tracing
+    return (tracing.counter('transport.exchange.pairs') - since[0],
+            tracing.counter('transport.exchange.bytes') - since[1])
 
 
 def add_counts(*counts):
@@ -1461,10 +1460,8 @@ def xparity_sharded(H, sub, lam_one, P=4):
     launches per matvec. Returns the launches and the diagonal builds."""
     import numpy as np
     import torch
-    from dynamite_tpu_torch import config
+    from dynamite_tpu_torch import config, tracing
     from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
-    from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded,
-                                                  xor_diagonal)
     from dynamite_tpu_torch.parallel import mesh
     from dynamite_tpu_torch.solvers.eigs import eigsolve_trlanczos
     dim = sub.get_dimension()
@@ -1473,15 +1470,16 @@ def xparity_sharded(H, sub, lam_one, P=4):
     v0 = np.random.RandomState(37).standard_normal((2, dim))
     stats = {}
     torch.cuda.synchronize()
-    xor_apply_sharded.launches = 0
-    xor_diagonal.launches = 0
+    before = (tracing.counter('xor.launches'),
+              tracing.counter('xor.diagonal_launches'))
     t0 = time.perf_counter()
     evals, _S, _V = eigsolve_trlanczos(k.krylov_ops(20), dim, torch.float32,
                                        config.device, nev=1, v0=v0,
                                        stats=stats)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches, builds = xor_apply_sharded.launches, xor_diagonal.launches
+    launches = tracing.counter('xor.launches') - before[0]
+    builds = tracing.counter('xor.diagonal_launches') - before[1]
     lam = float(evals[0])
     rec = {'phase': 'xparity_sharded', 'L': sub.L, 'dim': dim, 'P': P,
            'engine': k.engine, 'eval0': lam, 'one_device_eval0': lam_one,
@@ -1956,10 +1954,8 @@ def phase_syk_sharded(models, worlds=(2, 4)):
     at least 4 calls per matvec. Returns the records and the solve."""
     import numpy as np
     import torch
-    from dynamite_tpu_torch import config
-    from dynamite_tpu_torch.ops import apply
+    from dynamite_tpu_torch import config, tracing
     from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
-    from dynamite_tpu_torch.ops.xor_dense import xor_dense_apply
     from dynamite_tpu_torch.solvers.eigs import eigsolve_trlanczos
 
     H, sub, x, y_one, one_ms = models['syk20']
@@ -1977,11 +1973,12 @@ def phase_syk_sharded(models, worlds=(2, 4)):
                 raise RuntimeError(f'syk(20) over {P} virtual ranks took '
                                    f'the {k.engine} route')
             t = k.xor_dense
-            before = (apply.exchange.exchanges, apply.exchange.bytes)
+            before = (tracing.counter('transport.exchange.pairs'),
+                      tracing.counter('transport.exchange.bytes'))
             y = k.apply(x)
             torch.cuda.synchronize()
-            swaps = apply.exchange.exchanges - before[0]
-            sent = apply.exchange.bytes - before[1]
+            swaps = tracing.counter('transport.exchange.pairs') - before[0]
+            sent = tracing.counter('transport.exchange.bytes') - before[1]
             err = float((y - y_one).abs().max())
             ms = cuda_ms(lambda: k.apply(x))
             rec = {'case': 'syk_N40_virtual_ranks', 'P': P, 'dim': dim,
@@ -2022,14 +2019,14 @@ def phase_syk_sharded(models, worlds=(2, 4)):
     v0 = np.random.RandomState(31).standard_normal((2, dim))
     stats = {}
     torch.cuda.synchronize()
-    xor_dense_apply.applies = 0
+    before = tracing.counter('xor_dense.applies')
     t0 = time.perf_counter()
     evals, _S, _V = eigsolve_trlanczos(k.krylov_ops(20), dim, torch.float32,
                                        config.device, nev=1, v0=v0,
                                        stats=stats)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    calls = xor_dense_apply.applies
+    calls = tracing.counter('xor_dense.applies') - before
     lam = float(evals[0])
     rel = abs(lam - EVAL0_SYK16) / abs(EVAL0_SYK16)
     solve = {'case': 'eigsolve_syk16_virtual_ranks', 'P': P,
@@ -2116,7 +2113,6 @@ def distributed_full(rank, world, xp_eval0):
     import torch.distributed as dist
     from dynamite_tpu_torch.computations import eigsolve, evolve
     from dynamite_tpu_torch.models import localized
-    from dynamite_tpu_torch.ops import apply
     from dynamite_tpu_torch.ops.cvec import norm
     from dynamite_tpu_torch.ops.xor_apply import xor_apply
     from dynamite_tpu_torch.parallel import multihost
@@ -2143,20 +2139,19 @@ def distributed_full(rank, world, xp_eval0):
     sub = Full(L=L)
     H.add_subspace(sub)
     psi = State(state='random', subspace=sub, seed=42)
-    exchange = apply.exchange
-    exchange.exchanges = exchange.bytes = 0
+    before = exchanged()
     r, ev_launches, ev_stats, evolve_s = counted(
         lambda: evolve(H, psi, t=1.0), 'distributed evolve L=24')
-    ev_exchange = (exchange.exchanges, exchange.bytes)
+    ev_exchange = exchanged(before)
     nrm = r.norm()
     if not (np.isfinite(nrm) and abs(nrm - 1.0) <= 1e-3):
         raise RuntimeError(f'distributed evolve L=24 norm {nrm}')
 
-    exchange.exchanges = exchange.bytes = 0
+    before = exchanged()
     (evals, evecs), eig_launches, eig_stats, eigsolve_s = counted(
         lambda: eigsolve(H, nev=1, getvecs=True),
         'distributed eigsolve L=24')
-    eig_exchange = (exchange.exchanges, exchange.bytes)
+    eig_exchange = exchanged(before)
     lam = float(evals[0])
     v = evecs[0]
     resid = float(norm(H.dot(v).data - lam * v.data)) / abs(lam)
@@ -2235,7 +2230,6 @@ def distributed_xor_more(rank, world, v, xp_eval0):
     import torch
     from dynamite_tpu_torch.computations import eigsolve
     from dynamite_tpu_torch.models import localized, syk
-    from dynamite_tpu_torch.ops import apply
     from dynamite_tpu_torch.parallel import mesh, multihost
     from dynamite_tpu_torch.states import State
     from dynamite_tpu_torch.subspaces import Full, Parity, XParity
@@ -2245,11 +2239,11 @@ def distributed_xor_more(rank, world, v, xp_eval0):
     H.allow_projection = True
     sub = XParity(Full(L=L), '+')
     H.add_subspace(sub)
-    apply.exchange.exchanges = apply.exchange.bytes = 0
+    before = exchanged()
     evals, xp_counts, xp_stats, xp_s = counted(
         lambda: eigsolve(H, nev=1), 'distributed eigsolve XParity(Full(24))')
     xp_lam = float(evals[0])
-    xp_exchange = (apply.exchange.exchanges, apply.exchange.bytes)
+    xp_exchange = exchanged(before)
     if not (H.get_mat().engine == 'xor'
             and abs(xp_lam - xp_eval0) <= XPARITY_SHARDED_TOL):
         raise RuntimeError(f'distributed XParity(Full(24)): {xp_lam} '
@@ -2370,15 +2364,17 @@ def distributed_general(rank, world, L=24):
                                                  entanglement_entropy,
                                                  evolve)
     from dynamite_tpu_torch.models import localized
-    from dynamite_tpu_torch.ops.apply import all_gather_rows, ring_pass
+    from dynamite_tpu_torch import tracing
     from dynamite_tpu_torch.ops.ell import table_bytes
     from dynamite_tpu_torch.parallel import mesh, multihost
     from dynamite_tpu_torch.states import State
     from dynamite_tpu_torch.subspaces import SpinConserve
 
     def counters():
-        return np.array([all_gather_rows.gathers, all_gather_rows.bytes,
-                         ring_pass.passes, ring_pass.bytes])
+        return np.array([tracing.counter(f'transport.{c}')
+                         for c in ('all_gather_rows.calls',
+                                   'all_gather_rows.bytes',
+                                   'ring_pass.calls', 'ring_pass.bytes')])
 
     def table_mb(kernel):
         dt, dev = torch.float32, config.device
@@ -2888,9 +2884,6 @@ def child_example(name, args):
     import warnings
     import torch
     from dynamite_tpu_torch import computations, switch
-    from dynamite_tpu_torch.ops.ell import ell_apply
-    from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded,
-                                                  xor_diagonal)
 
     path = os.path.join(REPO, 'examples', 'scripts', EXAMPLE_SCRIPTS[name])
     if name == 'mbl':
@@ -2920,9 +2913,7 @@ def child_example(name, args):
     rec = {'example': name, 'args': args,
            'seconds': time.perf_counter() - t0,
            'lines': buf.getvalue().splitlines(),
-           'launches': {'xor_apply': xor_apply_sharded.launches,
-                        'xor_diagonal': xor_diagonal.launches,
-                        'ell_apply': ell_apply.launches},
+           'launches': _launch_counts(),
            'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
            'runtime_warnings': [str(w.message) for w in caught
                                 if issubclass(w.category, RuntimeWarning)],
@@ -3159,12 +3150,9 @@ def phase_examples():
 
 def _launch_counts():
     """The hand kernels' launch counters (see the kernels line)."""
-    from dynamite_tpu_torch.ops.ell import ell_apply
-    from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded,
-                                                  xor_diagonal)
-    return {'xor_apply': xor_apply_sharded.launches,
-            'xor_diagonal': xor_diagonal.launches,
-            'ell_apply': ell_apply.launches}
+    from dynamite_tpu_torch import tracing
+    return {key: tracing.counter(COUNTERS[key])
+            for key in ('xor_apply', 'xor_diagonal', 'ell_apply')}
 
 
 def child_reference_suite():
@@ -3715,12 +3703,11 @@ SESSION_NOTEBOOKS = ('2-States.ipynb', '4-TimeEvolution.ipynb',
                      '6-MatrixFree.ipynb')
 SESSION_COUNTS = '''\
 import json as _json, os as _os, numpy as _np, torch as _torch
-from dynamite_tpu_torch.ops.ell import ell_apply as _ell
-from dynamite_tpu_torch.ops.xor_apply import (xor_apply_sharded as _xor,
-                                              xor_diagonal as _diag)
+from dynamite_tpu_torch import tracing as _tr
 from dynamite_tpu_torch.parallel import multihost as _mh
 _ranks = _mh.allgather_host_values(_np.array([
-    _xor.launches, _diag.launches, _ell.launches,
+    _tr.counter('xor.launches'), _tr.counter('xor.diagonal_launches'),
+    _tr.counter('ell.launches'),
     _torch.cuda.max_memory_allocated(), _os.getpid()], dtype=_np.float64))
 print(_json.dumps({'session_counts': _ranks.tolist()}))
 '''
@@ -4228,6 +4215,7 @@ def ell_record(name, kernel, dtype, seed):
     (CUDA events, 3 warm-up, 20 reps; the plain version 3 reps after 1),
     the bound on nonzeros and the tables' bytes. Returns (record, x, y)."""
     import torch
+    from dynamite_tpu_torch import tracing
     from dynamite_tpu_torch.ops.ell import (build_tables, ell_apply,
                                             ell_apply_reference,
                                             sell_apply_reference)
@@ -4242,7 +4230,7 @@ def ell_record(name, kernel, dtype, seed):
     t = kernel.ell_tables.on(dtype, x.device)
     torch.cuda.synchronize()
     build_peak = torch.cuda.max_memory_allocated() - mem0
-    saved = ell_apply.launches
+    saved = tracing.counter('ell.launches')
     y = ell_apply(x, t)
     y_plain = sell_apply_reference(x, t)
     torch.cuda.synchronize()
@@ -4257,7 +4245,8 @@ def ell_record(name, kernel, dtype, seed):
     del y_padded
     ms = cuda_ms(lambda: ell_apply(x, t))
     plain_ms = cuda_ms(lambda: sell_apply_reference(x, t), 3, 1)
-    ell_apply.launches = saved  # a check's launches are not the main path's
+    # a check's launches are not the main path's
+    tracing.count('ell.launches', saved - tracing.counter('ell.launches'))
     bound_ms, bound_by = ell_bound(t, x)
     lib_ms, lib_err, lib_nnz = ell_library_spmv(*padded, x, y)
     padded_bytes = sum(v.numel() * v.element_size() for v in padded
@@ -4532,11 +4521,12 @@ def sharded_ell_records(H, auto, one_tables, worlds=(2, 3, 4, 8)):
     must add up to the one-device count and their bytes to within 1% of
     its bytes. Returns the records, one per P."""
     import torch
+    from dynamite_tpu_torch import tracing
     from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
     from dynamite_tpu_torch.ops.ell import ell_apply, sell_apply_reference
     dim = auto.get_dimension()
     x1 = numpy_planes(dim, torch.float32, seed=31)
-    saved = ell_apply.launches
+    saved = tracing.counter('ell.launches')
     y1 = ell_apply(x1, one_tables)
     recs = []
     for P in worlds:
@@ -4574,7 +4564,8 @@ def sharded_ell_records(H, auto, one_tables, worlds=(2, 3, 4, 8)):
                 'max_abs_err': err, 'rel_err': rel,
                 'bound_ms': b_ms, 'bound_by': b_by})
             del plain
-        ell_apply.launches = saved  # the checks' launches
+        # the checks' launches
+        tracing.count('ell.launches', saved - tracing.counter('ell.launches'))
         nnz = sum(r['nnz'] for r in ranks)
         mb = sum(r['table_mb'] for r in ranks)
         rec = {'case': 'localized_auto24_ell_sharded', 'dtype': 'float32',
@@ -4615,8 +4606,8 @@ def sharded_evolve(H, auto, P=4):
     on one device (within AUTO_EVOLVE_TOL). Returns the record and the
     launches."""
     import torch
+    from dynamite_tpu_torch import tracing
     from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
-    from dynamite_tpu_torch.ops.ell import ell_apply
     from dynamite_tpu_torch.solvers.expmv import expmv
     dim = auto.get_dimension()
     k = OperatorKernel(H._msc_on(auto), auto, auto,
@@ -4630,13 +4621,13 @@ def sharded_evolve(H, auto, P=4):
     want = expmv(one.krylov_ops(30), x1, -1j, anorm, ncv=30, tol=1e-7)
     stats = {}
     torch.cuda.synchronize()
-    ell_apply.launches = 0
+    before = tracing.counter('ell.launches')
     t0 = time.perf_counter()
     got = expmv(k.krylov_ops(30), x, -1j, anorm, ncv=30, tol=1e-7,
                 stats=stats)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = ell_apply.launches
+    launches = tracing.counter('ell.launches') - before
     err = float((got[:, :dim] - want).abs().max())
     rec = {'case': 'evolve_auto24_virtual_ranks', 'P': P,
            'evolve_s': seconds, 'matvecs': stats['matvecs'],

@@ -21,22 +21,25 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from . import config
+from . import config, tracing
+from .ops import cvec
 from .ops import msc as msc_tools
 from .parallel import multihost
 from .solvers.eigs import eigsolve_trlanczos, ritz_vectors
 from .solvers.expmv import (ConvergenceError, MaxIterationsError, expmv,
                              initial_tstep)
-from .solvers.krylov import (KrylovOps, check_workspace_fits, combine, gram,
-                             host)
+from .solvers.krylov import (KrylovOps, check_workspace_fits, combine,
+                             counting_syncs, gram, host)
 from .solvers.minres import minres_solver
 
 DEFAULT_NCV_EVOLVE = 30
 
 #: Per-phase wall times and iteration counters of the most recent evolve() /
 #: eigsolve() call — the analog of the reference's PETSc ``-log_view``
-#: diagnostics. Keys: phase wall times (``*_s``), solver counters
-#: (substeps, matvecs, host_syncs, restarts).
+#: diagnostics. Keys: phase wall times (``*_s``, host seconds of the spans
+#: ``solver.<phase>``), solver counters (substeps, matvecs, restarts), and
+#: host_syncs, the counter ``solver.syncs`` over the solve
+#: (:mod:`.tracing`).
 last_solve_stats = {}
 
 
@@ -45,8 +48,10 @@ def _maybe_profile(name):
     """Wrap a solve in a torch.profiler trace when ``config.profile_dir`` is
     set: CPU activity, and the card's when ``config.device`` is CUDA; one
     Chrome/TensorBoard trace per call, ``{name}_rank{r}.{ns}.pt.trace.json``
-    in that directory (so ranks never overwrite each other). With it unset
-    nothing is imported or written.
+    in that directory (so ranks never overwrite each other). The port's
+    spans (:mod:`.tracing`) are on while it records, so the trace names
+    them (``dynamite.solve.evolve``, ``dynamite.apply``, ...). With it
+    unset nothing is imported or written.
 
     A user feature, not a measurement: the profiler's own cost is in the
     solve's times, and it can drop kernel launches from its record."""
@@ -61,15 +66,31 @@ def _maybe_profile(name):
         activities.append(ProfilerActivity.CUDA)
     handler = tensorboard_trace_handler(
         profile_dir, worker_name=f'{name}_rank{multihost.rank()}')
-    with profile(activities=activities, on_trace_ready=handler):
-        yield
+    was_on = tracing.enabled()
+    tracing.enable()
+    try:
+        with profile(activities=activities, on_trace_ready=handler):
+            yield
+    finally:
+        if not was_on:
+            tracing.disable()
 
 
 @contextmanager
 def _phase(stats, key):
+    """The span ``solver.<phase>`` of the ``<phase>_s`` key, whose host
+    seconds it adds to ``stats[key]``."""
     t0 = time.perf_counter()
-    yield
+    with tracing.span('solver.' + key[:-2]):
+        yield
     stats[key] = stats.get(key, 0.0) + time.perf_counter() - t0
+
+
+def _shared_stats(stats):
+    """Rank 0's stats on every rank (the counters agree already, the wall
+    times not)."""
+    with tracing.span('solver.stats'):
+        return multihost.broadcast_object(stats)
 
 
 def evolve(H, state, t, result=None, tol=None, ncv=None, algo=None,
@@ -108,27 +129,28 @@ def evolve(H, state, t, result=None, tol=None, ncv=None, algo=None,
         tol = 1e-7
 
     stats = {}
-    with _phase(stats, 'build_s'):
-        kernel = H.get_mat(subspaces=(state.subspace, state.subspace))
-    m = min(ncv, len(state))
-    check_workspace_fits(len(state), m, state.data.device, state.data.dtype,
-                         'evolve')
-    kops = kernel.krylov_ops(m)
+    with _maybe_profile('evolve'), tracing.span('solve.evolve'):
+        with _phase(stats, 'build_s'):
+            kernel = H.get_mat(subspaces=(state.subspace, state.subspace))
+        m = min(ncv, len(state))
+        check_workspace_fits(len(state), m, state.data.device,
+                             state.data.dtype, 'evolve')
+        kops = kernel.krylov_ops(m)
 
-    # the matrix infinity norm (computed on the device, cached on the
-    # operator) for the Expokit stepping heuristic — a much tighter bound
-    # than sum_t |c_t|, which overestimates ||H|| by up to the term count
-    # and shrinks the initial substeps accordingly
-    with _phase(stats, 'norm_s'):
-        anorm = H.infinity_norm(subspaces=(state.subspace, state.subspace))
+        # the matrix infinity norm (computed on the device, cached on the
+        # operator) for the Expokit stepping heuristic — a much tighter
+        # bound than sum_t |c_t|, which overestimates ||H|| by up to the
+        # term count and shrinks the initial substeps accordingly
+        with _phase(stats, 'norm_s'):
+            anorm = H.infinity_norm(
+                subspaces=(state.subspace, state.subspace))
 
-    with _maybe_profile('evolve'), _phase(stats, 'solve_s'):
-        result.data = expmv(kops, state.data, -1j * t, anorm, ncv=ncv,
-                            tol=tol, max_its=max_its, stats=stats)
-    result.set_initialized()
-    global last_solve_stats
-    # rank 0's on every rank: the counters agree already, the wall times not
-    last_solve_stats = multihost.broadcast_object(stats)
+        with _phase(stats, 'solve_s'):
+            result.data = expmv(kops, state.data, -1j * t, anorm, ncv=ncv,
+                                tol=tol, max_its=max_its, stats=stats)
+        result.set_initialized()
+        global last_solve_stats
+        last_solve_stats = _shared_stats(stats)
     return result
 
 
@@ -172,34 +194,36 @@ def eigsolve(H, getvecs=False, nev=1, which='lowest', target=None, tol=None,
         raise ValueError("which='target' requires the target "
                          'parameter')
 
-    kernel = H.get_mat(subspaces=(subspace, subspace))
-    dim = subspace.get_dimension()
+    with _maybe_profile('eigsolve'), tracing.span('solve.eigsolve'):
+        kernel = H.get_mat(subspaces=(subspace, subspace))
+        dim = subspace.get_dimension()
 
-    if which == 'target':
-        return _eigsolve_target(H, dim, nev, target, tol, getvecs, max_its,
-                                ncv, subspace, target_method, inner_its,
-                                inner_tol)
+        if which == 'target':
+            return _eigsolve_target(H, dim, nev, target, tol, getvecs,
+                                    max_its, ncv, subspace, target_method,
+                                    inner_its, inner_tol)
 
-    if ncv is None:
-        ncv = min(dim - 1 if dim > 2 else dim, max(2 * nev + 10, 20))
-    ncv = min(ncv, dim)
+        if ncv is None:
+            ncv = min(dim - 1 if dim > 2 else dim, max(2 * nev + 10, 20))
+        ncv = min(ncv, dim)
 
-    dtype = config.real_dtype
-    device = config.device
-    check_workspace_fits(dim, ncv, device, dtype, 'eigsolve')
-    kops = kernel.krylov_ops(ncv)
+        dtype = config.real_dtype
+        device = config.device
+        check_workspace_fits(dim, ncv, device, dtype, 'eigsolve')
+        kops = kernel.krylov_ops(ncv)
 
-    stats = {}
-    with _maybe_profile('eigsolve'), _phase(stats, 'solve_s'):
-        evals, S, V = eigsolve_trlanczos(
-            kops, dim, dtype, device, nev=nev, which=which, tol=tol,
-            max_restarts=max_its, stats=stats)
-    global last_solve_stats
-    last_solve_stats = multihost.broadcast_object(stats)
+        stats = {}
+        with _phase(stats, 'solve_s'):
+            evals, S, V = eigsolve_trlanczos(
+                kops, dim, dtype, device, nev=nev, which=which, tol=tol,
+                max_restarts=max_its, stats=stats)
+        global last_solve_stats
+        last_solve_stats = _shared_stats(stats)
 
-    if not getvecs:
-        return np.asarray(evals, dtype=float)
-    return np.asarray(evals, dtype=float), _ritz_states(H, subspace, S, V)
+        if not getvecs:
+            return np.asarray(evals, dtype=float)
+        return (np.asarray(evals, dtype=float),
+                _ritz_states(H, subspace, S, V))
 
 
 def _eigsolve_target(H, dim, nev, target, tol, getvecs, max_its, ncv,
@@ -223,7 +247,8 @@ def _eigsolve_target(H, dim, nev, target, tol, getvecs, max_its, ncv,
     raises (``MaxIterationsError``) leaves its counters there: the outer
     applies and restarts, the MINRES solves and iterations, the extract's
     applies, ``matvecs`` (every H apply: the MINRES iterations, or the
-    folded applies, plus the extract's) and the host syncs.
+    folded applies, plus the extract's) and the host syncs (the counter
+    ``solver.syncs`` over the solve).
     """
     if method is None:
         method = 'shift_invert'
@@ -246,21 +271,22 @@ def _eigsolve_target(H, dim, nev, target, tol, getvecs, max_its, ncv,
     outer, inner, extract = {}, {}, {}
     last_solve_stats = stats = {'method': method}
     try:
-        with _phase(stats, 'candidates_s'):
-            if method == 'shift_invert':
-                states = _target_candidates_shift_invert(
-                    H, dim, nev_f, target, tol, max_its, ncv, subspace,
-                    dtype, device, inner_its, inner_tol, outer, inner)
-            else:
-                states = _target_candidates_fold(
-                    H, dim, nev_f, target, tol, max_its, ncv, subspace,
-                    dtype, device, outer)
-        with _phase(stats, 'extract_s'):
-            result = _rayleigh_ritz_extract(H, states, target, nev, getvecs,
-                                            stats=extract)
+        with tracing.span('solve.target'), counting_syncs(stats):
+            with _phase(stats, 'candidates_s'):
+                if method == 'shift_invert':
+                    states = _target_candidates_shift_invert(
+                        H, dim, nev_f, target, tol, max_its, ncv, subspace,
+                        dtype, device, inner_its, inner_tol, outer, inner)
+                else:
+                    states = _target_candidates_fold(
+                        H, dim, nev_f, target, tol, max_its, ncv, subspace,
+                        dtype, device, outer)
+            with _phase(stats, 'extract_s'):
+                result = _rayleigh_ritz_extract(H, states, target, nev,
+                                                getvecs, stats=extract)
     finally:
         stats.update(_target_stats(method, outer, inner, extract))
-    stats.update(multihost.broadcast_object(stats))
+    stats.update(_shared_stats(stats))
     return result
 
 
@@ -281,8 +307,6 @@ def _target_stats(method, outer, inner, extract):
         'extract_applies': extract.get('applies', 0),
         'matvecs': (minres_its if method == 'shift_invert'
                     else outer_applies) + extract.get('applies', 0),
-        'host_syncs': (outer.get('host_syncs', 0) + inner.get('host_syncs', 0)
-                       + extract.get('host_syncs', 0)),
     }
 
 
@@ -414,11 +438,11 @@ def _streamed_grams(kernel, V, stats):
     parts = [gram(V, V), gram(V, W), gram(W, V), gram(W, W),
              [torch.stack(c, dim=1) for c in VZ],
              [torch.stack(c, dim=1) for c in WZ]]
-    flat = host(torch.stack([p for pair in parts for p in pair]))
+    with counting_syncs(stats):
+        flat = host(torch.stack([p for pair in parts for p in pair]))
     VV, VW, WV, WW, VZ, WZ = (flat[2 * k] + 1j * flat[2 * k + 1]
                               for k in range(6))
     stats['applies'] = stats.get('applies', 0) + 2 * n
-    stats['host_syncs'] = stats.get('host_syncs', 0) + 1
     return (np.block([[VW, VZ], [WW, WZ]]), np.block([[VV, VW], [WV, WW]]),
             W)
 
@@ -479,8 +503,10 @@ def _rayleigh_ritz_extract(H, states, target, nev, getvecs, stats=None):
         out.data = combine(V, cr[:n], ci[:n])
         out.data += combine(W, cr[n:], ci[n:])
         out.set_initialized()
-        out.normalize()
-        stats['host_syncs'] = stats.get('host_syncs', 0) + 1
+        # State.normalize, with its norm read as the solvers read
+        with counting_syncs(stats):
+            nrm = float(host(cvec.norm(out.data)))
+        out.data = cvec.scale_real(out.data, 1.0 / nrm)
         evecs.append(out)
     return evals, evecs
 

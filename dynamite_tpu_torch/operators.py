@@ -16,7 +16,7 @@ from zlib import crc32
 
 import numpy as np
 
-from . import config
+from . import config, tracing
 from .utils import validate
 from .utils.bitwise import parity
 from .ops import msc as msc_tools
@@ -437,26 +437,29 @@ class Operator:
 
         config._initialize()
 
-        self.reduce_msc()
+        with tracing.span('build.msc'):
+            self.reduce_msc()
 
-        if not subspaces[0].product_state_basis:
-            msc, xp_ok = subspaces[0].reduce_msc(self.msc,
-                                                 check_conserves=True)
-            if not self.allow_projection and not xp_ok:
-                raise ValueError(self._projection_message())
-        else:
-            msc = self.msc
+            if not subspaces[0].product_state_basis:
+                msc, xp_ok = subspaces[0].reduce_msc(self.msc,
+                                                     check_conserves=True)
+                if not self.allow_projection and not xp_ok:
+                    raise ValueError(self._projection_message())
+            else:
+                msc = self.msc
 
-        self._check_consistent_msc(msc)
+            self._check_consistent_msc(msc)
 
-        if not msc_tools.is_hermitian(msc):
-            raise ValueError('Building non-Hermitian matrices currently not '
-                             'supported.')
+            if not msc_tools.is_hermitian(msc):
+                raise ValueError('Building non-Hermitian matrices currently '
+                                 'not supported.')
 
         kernel = OperatorKernel(msc, subspaces[0], subspaces[1])
 
-        if not self.allow_projection \
-                and not self._conserves_for_build(subspaces, kernel):
+        with tracing.span('build.conserves'):
+            conserves = (self.allow_projection
+                         or self._conserves_for_build(subspaces, kernel))
+        if not conserves:
             raise ValueError(self._projection_message())
 
         self._kernels[subspaces] = kernel

@@ -75,6 +75,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..parallel import mesh, multihost
 from ..utils.bitwise import parity as parity_np
 from . import ell
@@ -229,17 +230,14 @@ def general_sweep(x, plan, rows=None):
 
     ``rows`` = (start, stop) gives those global rows alone (one rank's, its
     pad rows 0), with x the gathered (2, storage_dim) input: the sharded
-    sweep (:class:`SweepGather`). Counts its calls in
-    ``general_sweep.applies``."""
+    sweep (:class:`SweepGather`). Counts its calls in ``sweep.applies``
+    (:mod:`..tracing`)."""
     if rows is None:
         rows = (0, plan.dim_left)
     y = x.new_zeros((2, rows[1] - rows[0]))
     _sweep_into(y, x, plan, rows)
-    general_sweep.applies += 1
+    tracing.count('sweep.applies')
     return y
-
-
-general_sweep.applies = 0
 
 
 def exchange(x_local, tables, bufs):
@@ -247,10 +245,11 @@ def exchange(x_local, tables, bufs):
     every m_hi != 0 of ``tables.hi_list`` (a :class:`ShardedXorTables`, or
     the XOR-dense engine's :class:`.xor_dense.DenseLayout`), by
     one pairwise send/recv per m_hi, all posted in one
-    ``dist.batch_isend_irecv`` and waited on. Every rank takes the masks in
-    the same sorted order. Returns the source list of the kernel's sharded
-    route; counts ``exchange.exchanges`` and ``exchange.bytes`` (sent by
-    this rank)."""
+    ``dist.batch_isend_irecv`` and waited on (the collective step
+    ``exchange``: the span ``transport.exchange``). Every rank takes the
+    masks in the same sorted order. Returns the source list of the kernel's
+    sharded route; counts the pairs in ``transport.exchange.pairs`` and the
+    bytes this rank sends in ``transport.exchange.bytes``."""
     me = multihost.rank()
     srcs, ops = [], []
     for m_hi in tables.hi_list:
@@ -262,16 +261,18 @@ def exchange(x_local, tables, bufs):
         ops.append(dist.P2POp(dist.irecv, buf, me ^ m_hi))
         srcs.append(buf)
     if ops:
-        for req in multihost.collective(dist.batch_isend_irecv, ops):
-            req.wait()
-        exchange.exchanges += len(ops) // 2
-        exchange.bytes += len(ops) // 2 * x_local.numel() \
-            * x_local.element_size()
+        multihost.collective(_post_and_wait, ops, name='exchange')
+        tracing.count('transport.exchange.pairs', len(ops) // 2)
+        tracing.count('transport.exchange.bytes',
+                      len(ops) // 2 * _nbytes(x_local))
     return srcs
 
 
-exchange.exchanges = 0
-exchange.bytes = 0
+def _post_and_wait(ops):
+    """Post point-to-point operations in one ``dist.batch_isend_irecv`` and
+    wait for them."""
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
 
 
 def _nbytes(t):
@@ -281,48 +282,41 @@ def _nbytes(t):
 def all_gather_rows(x_local):
     """The (2, P * n) input put together from every rank's (2, n) block, in
     rank order, on every rank: ``dist.all_gather_into_tensor`` on NCCL,
-    the list form of ``all_gather`` on gloo. Counts one call in
-    ``all_gather_rows.gathers`` and the bytes this rank receives, (P - 1)
-    blocks, in ``all_gather_rows.bytes``."""
+    the list form of ``all_gather`` on gloo. One collective step
+    ``all_gather_rows`` (``transport.all_gather_rows.calls``); counts the
+    bytes this rank receives, (P - 1) blocks, in
+    ``transport.all_gather_rows.bytes``."""
     world = multihost.world_size()
     x_local = x_local.contiguous()
     if dist.get_backend() == 'nccl':
         out = x_local.new_empty((world,) + tuple(x_local.shape))
-        multihost.collective(dist.all_gather_into_tensor, out, x_local)
+        multihost.collective(dist.all_gather_into_tensor, out, x_local,
+                             name='all_gather_rows')
         x = out.transpose(0, 1).reshape(2, -1)
     else:
         parts = [torch.empty_like(x_local) for _ in range(world)]
-        multihost.collective(dist.all_gather, parts, x_local)
+        multihost.collective(dist.all_gather, parts, x_local,
+                             name='all_gather_rows')
         x = torch.cat(parts, dim=1)
-    all_gather_rows.gathers += 1
-    all_gather_rows.bytes += (world - 1) * _nbytes(x_local)
+    tracing.count('transport.all_gather_rows.bytes',
+                  (world - 1) * _nbytes(x_local))
     return x
-
-
-all_gather_rows.gathers = 0
-all_gather_rows.bytes = 0
 
 
 def ring_pass(block):
     """Send ``block`` to rank (me + 1) mod P and return the one received
     from rank (me - 1) mod P, both posted in one ``dist.batch_isend_irecv``
-    (at P = 2 both go to the one peer). Counts one pass in
-    ``ring_pass.passes`` and the bytes this rank sends in
-    ``ring_pass.bytes``."""
+    (at P = 2 both go to the one peer): one collective step ``ring_pass``
+    (``transport.ring_pass.calls``); counts the bytes this rank sends in
+    ``transport.ring_pass.bytes``."""
     me, world = multihost.rank(), multihost.world_size()
     block = block.contiguous()
     buf = torch.empty_like(block)
     ops = [dist.P2POp(dist.isend, block, (me + 1) % world),
            dist.P2POp(dist.irecv, buf, (me - 1) % world)]
-    for req in multihost.collective(dist.batch_isend_irecv, ops):
-        req.wait()
-    ring_pass.passes += 1
-    ring_pass.bytes += _nbytes(block)
+    multihost.collective(_post_and_wait, ops, name='ring_pass')
+    tracing.count('transport.ring_pass.bytes', _nbytes(block))
     return buf
-
-
-ring_pass.passes = 0
-ring_pass.bytes = 0
 
 
 class GroupTransport:
@@ -370,14 +364,14 @@ class VirtualTransport:
         self.ranks = tuple(range(self.world))
 
     def all_gather(self, blocks):
-        all_gather_rows.gathers += self.world
-        all_gather_rows.bytes += (self.world - 1) * sum(map(_nbytes,
-                                                            blocks))
+        tracing.count('transport.all_gather_rows.calls', self.world)
+        tracing.count('transport.all_gather_rows.bytes',
+                      (self.world - 1) * sum(map(_nbytes, blocks)))
         return torch.cat(blocks, dim=1)
 
     def ring_pass(self, blocks):
-        ring_pass.passes += self.world
-        ring_pass.bytes += sum(map(_nbytes, blocks))
+        tracing.count('transport.ring_pass.calls', self.world)
+        tracing.count('transport.ring_pass.bytes', sum(map(_nbytes, blocks)))
         return blocks[-1:] + blocks[:-1]
 
     def pairwise(self, blocks, tables, bufs):
@@ -385,8 +379,8 @@ class VirtualTransport:
         for r in self.ranks:
             out.append([blocks[r ^ m_hi] for m_hi in tables.hi_list])
             n = sum(1 for m_hi in tables.hi_list if m_hi)
-            exchange.exchanges += n
-            exchange.bytes += n * _nbytes(blocks[r])
+            tracing.count('transport.exchange.pairs', n)
+            tracing.count('transport.exchange.bytes', n * _nbytes(blocks[r]))
         return out
 
     def gather(self, values):
@@ -518,7 +512,7 @@ class SweepRing(_Sharded):
                   lambda r, t, b, y: ring_sweep_step(plan, world, r, t, b,
                                                      y),
                   [x.new_zeros((2, self.local_left)) for x in xs])
-        general_sweep.applies += len(ys)
+        tracing.count('sweep.applies', len(ys))
         return ys
 
 
@@ -540,8 +534,10 @@ def _xor_engine(plan, left, right, world=1):
     kernel's shared-memory tables hold it (not ``use_scan``, or tables that
     fit in float32 and in float64), ('xor_dense', the split of
     :func:`.xor_dense.choose_split`) where the XOR-dense engine takes it,
-    else (None, None). Decided from global quantities only."""
-    tables = XorTables(plan, left)
+    else (None, None). Decided from global quantities only; the span
+    ``build.xor``."""
+    with tracing.span('build.xor'):
+        tables = XorTables(plan, left)
     if not plan.use_scan or _kernel_holds(tables):
         return 'xor', tables
     split = choose_split(plan, left, right, world)
@@ -612,9 +608,18 @@ class OperatorKernel:
     route. ``conserves_hint`` is the sector or ELL engine's conservation
     flag, a byproduct of its build, the same on every rank (None for the
     XOR engine, whose pairs are decided symbolically, and for the sweeps).
+
+    A build is the span ``build.kernel`` and counts one in
+    ``build.kernels``; an apply is the span ``apply`` and counts one in
+    ``apply.calls`` (:mod:`..tracing`).
     """
 
     def __init__(self, msc, left, right, transport=None):
+        tracing.count('build.kernels')
+        with tracing.span('build.kernel'):
+            self._build(msc, left, right, transport)
+
+    def _build(self, msc, left, right, transport):
         from .. import config
 
         self.plan = _Plan(msc, left, right)
@@ -657,9 +662,10 @@ class OperatorKernel:
             # the first set of tables, in the configured precision, also
             # gives the conservation flag (the JAX package's
             # _try_ell_local)
-            self.ell_tables = ell.EllTables(self.plan)
-            self.conserves_hint = self.ell_tables.build_conserving(
-                config.real_dtype, config.device)
+            with tracing.span('build.ell'):
+                self.ell_tables = ell.EllTables(self.plan)
+                self.conserves_hint = self.ell_tables.build_conserving(
+                    config.real_dtype, config.device)
 
     def _build_over_ranks(self):
         """The route over ranks that :func:`sharded_route` names, built:
@@ -680,14 +686,16 @@ class OperatorKernel:
             self.sector_plan = self.sharded.sector_plan
             self.conserves_hint = self.sector_plan.conserved
         elif route == 'ell':
-            self.sharded = ShardedEll(plan, transport)
+            with tracing.span('build.ell'):
+                self.sharded = ShardedEll(plan, transport)
             self.conserves_hint = self.sharded.conserved
         elif route != 'zero':
             self.sharded = {'sweep_ring': SweepRing,
                             'sweep': SweepGather}[route](plan, transport)
 
     def _build_xor_dense(self, split, ranks, world):
-        self.xor_dense = build_xor_dense(self.plan, split, ranks, world)
+        with tracing.span('build.xor_dense'):
+            self.xor_dense = build_xor_dense(self.plan, split, ranks, world)
         self.xor_dense_info = self.xor_dense.info
 
     def sharded_default(self):
@@ -718,6 +726,11 @@ class OperatorKernel:
         virtual ranks' padded vector with a :class:`VirtualTransport`).
 
         Over ranks see :meth:`apply_ranks`."""
+        tracing.count('apply.calls')
+        with tracing.span('apply'):
+            return self._apply(x)
+
+    def _apply(self, x):
         x = x.contiguous()
         transport = self.transport
         if transport is None:
@@ -743,8 +756,8 @@ class OperatorKernel:
             what = 'padded vector' if transport.virtual else 'rows'
             raise ValueError(f'expected this transport\'s {want} {what}, '
                              f'got {tuple(x.shape)}')
-        ys = self.apply_ranks([x[:, i * n:(i + 1) * n].contiguous()
-                               for i in range(len(transport.ranks))])
+        ys = self._apply_ranks([x[:, i * n:(i + 1) * n].contiguous()
+                                for i in range(len(transport.ranks))])
         return ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
 
     def apply_ranks(self, xs):
@@ -758,7 +771,12 @@ class OperatorKernel:
         ``sharded`` object's. The XOR route's receive buffers,
         ``len(hi_list) - 1`` blocks, are kept per dtype and device between
         calls, so the memory grows with the number of distinct high
-        masks."""
+        masks. A call is an apply (its span and count, as :meth:`apply`'s)."""
+        tracing.count('apply.calls')
+        with tracing.span('apply'):
+            return self._apply_ranks(xs)
+
+    def _apply_ranks(self, xs):
         transport = self.transport
         dim, world = self.plan.dim_right, transport.world
         local_bits = mesh.local_dim(dim, world).bit_length() - 1

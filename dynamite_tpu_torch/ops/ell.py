@@ -48,6 +48,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..utils.build import CSRC, NVCC_FLAGS, build_shared_library, find_nvcc
 from .index_maps import parity
 
@@ -434,11 +435,12 @@ class EllTables:
     def _build(self, dtype, device, with_conserves):
         key = _key(dtype, device)
         t0 = time.perf_counter()
-        tables, conserved, pack_s = build_packed(
-            self.plan, dtype, key[1], with_conserves, self.rows,
-            self.dim_right)
-        if key[1].type == 'cuda':
-            torch.cuda.synchronize(key[1])
+        with tracing.span('build.ell'):
+            tables, conserved, pack_s = build_packed(
+                self.plan, dtype, key[1], with_conserves, self.rows,
+                self.dim_right)
+            if key[1].type == 'cuda':
+                torch.cuda.synchronize(key[1])
         self._tables[key] = tables
         self.build_s[key] = time.perf_counter() - t0
         self.pack_s[key] = pack_s
@@ -599,8 +601,8 @@ def ell_apply(x, t):
     :func:`sell_apply_reference`), as a (2, rows) tensor in x's dtype.
 
     On a CUDA tensor it launches ``csrc/ell_apply.cu`` on the current
-    stream (built at first use) and counts one launch in
-    ``ell_apply.launches``; an input it does not take, a failed build or a
+    stream (built at first use) and counts one launch in ``ell.launches``
+    (:mod:`..tracing`); an input it does not take, a failed build or a
     refused launch raises. On a CPU tensor it runs the plain version."""
     if x.device.type == 'cpu':
         return sell_apply_reference(x, t)
@@ -618,8 +620,5 @@ def ell_apply(x, t):
     if err != 0:
         raise RuntimeError('ell_apply kernel launch failed: '
                            + lib.ell_apply_error_string(err).decode())
-    ell_apply.launches += 1
+    tracing.count('ell.launches')
     return y
-
-
-ell_apply.launches = 0

@@ -40,6 +40,7 @@ from math import comb
 import numpy as np
 import torch
 
+from .. import tracing
 from ..parallel import multihost
 
 
@@ -115,16 +116,13 @@ def spinconserve_index(subspace, keep, device):
     Built once per (subspace, keep, device) from whole rank arrays, and
     held until the subspace object that first asked for them is freed or
     :func:`clear_index_cache` is called; counted in
-    ``spinconserve_index.builds``."""
+    ``rdm.spinconserve_index_builds`` (:mod:`..tracing`)."""
     per = _INDEX.setdefault(subspace, {})
     key = (tuple(keep), torch.device(device))
     if key not in per:
         per[key] = _build_index(subspace, keep, device)
-        spinconserve_index.builds += 1
+        tracing.count('rdm.spinconserve_index_builds')
     return per[key]
-
-
-spinconserve_index.builds = 0
 
 
 def index_cache_bytes():

@@ -48,6 +48,7 @@ import copy
 import numpy as np
 import torch
 
+from .. import tracing
 from ..utils.bitwise import popcount, parity
 from . import sectors as sec_mod
 from .index_maps import parity as parity_t
@@ -226,265 +227,288 @@ class SectorPlan:
 
     def __init__(self, plan, left, right, real_dtype, device='cpu',
                  with_diag=True):
-        real_dtype = _np_dtype(real_dtype)
-        lbase, self.xparity = _resolve(left)
-        L, k = lbase.L, lbase.k
-        lay = sec_mod.layout(L, k)
-        self.lay = lay
-        self.dim = plan.dim_left
-        self.real_dtype = real_dtype
+        with tracing.span('build.sector_plan'):
+            self._build(plan, left, right, real_dtype, device, with_diag)
 
-        La, Lr = lay.La, lay.Lr
-        nck = sec_mod.nchoosek_table(L, k)
+    def _build(self, plan, left, right, real_dtype, device, with_diag):
+        """The build, stage by stage, each a child span of
+        ``build.sector_plan``: the sector layout and the half-state
+        enumerations (``.states``), the channel matrices (``.channels``),
+        their merging (``.merge``), the diagonal field (``.diagonal``) and
+        the sharing of equal matrices (``.dedup``)."""
+        with tracing.span('build.sector_plan.states'):
+            real_dtype = _np_dtype(real_dtype)
+            lbase, self.xparity = _resolve(left)
+            L, k = lbase.L, lbase.k
+            lay = sec_mod.layout(L, k)
+            self.lay = lay
+            self.dim = plan.dim_left
+            self.real_dtype = real_dtype
 
-        # participating sectors (XParity: only t=0 representatives — the
-        # reduced MSC's masks have the top bit clear, subspaces.reduce_msc)
-        self.secs = [s for s in range(lay.n_sectors)
-                     if not (self.xparity and lay.t[s])]
-        self.sec_index = {s: i for i, s in enumerate(self.secs)}
-        assert lay.off[self.secs[0]] == 0
-        assert (lay.off[self.secs[-1]]
-                + lay.nb[self.secs[-1]] * lay.na[self.secs[-1]]) == self.dim
+            La, Lr = lay.La, lay.Lr
+            nck = sec_mod.nchoosek_table(L, k)
 
-        # cached half-state enumerations and ranks
-        hr_lists = {}   # kr -> sorted Lr-bit states
-        sa_lists = {}   # ka -> sorted La-bit states
+            # participating sectors (XParity: only t=0 representatives — the
+            # reduced MSC's masks have the top bit clear, subspaces.reduce_msc)
+            self.secs = [s for s in range(lay.n_sectors)
+                         if not (self.xparity and lay.t[s])]
+            self.sec_index = {s: i for i, s in enumerate(self.secs)}
+            assert lay.off[self.secs[0]] == 0
+            last = self.secs[-1]
+            assert lay.off[last] + lay.nb[last] * lay.na[last] == self.dim
 
-        def hr_of(kr):
-            if kr not in hr_lists:
-                hr_lists[kr] = sec_mod.states_of_popcount(Lr, kr)
-            return hr_lists[kr]
+            # cached half-state enumerations and ranks
+            hr_lists = {}   # kr -> sorted Lr-bit states
+            sa_lists = {}   # ka -> sorted La-bit states
 
-        def sa_of(ka):
-            if ka not in sa_lists:
-                sa_lists[ka] = sec_mod.states_of_popcount(La, ka)
-            return sa_lists[ka]
+            def hr_of(kr):
+                if kr not in hr_lists:
+                    hr_lists[kr] = sec_mod.states_of_popcount(Lr, kr)
+                return hr_lists[kr]
 
-        def rank_r(x):
-            return sec_mod.rank_bits(x, Lr, nck, k)
+            def sa_of(ka):
+                if ka not in sa_lists:
+                    sa_lists[ka] = sec_mod.states_of_popcount(La, ka)
+                return sa_lists[ka]
 
-        def rank_a(x):
-            return sec_mod.rank_bits(x, La, nck, k)
+            def rank_r(x):
+                return sec_mod.rank_bits(x, Lr, nck, k)
 
-        # channel accumulators
-        colmm = {}     # (si, so, mr, mt, s_r) -> M_cplx
-        rowmm = {}     # (si, so, s_a) -> N_cplx
-        diag_terms = []
-        conserved = True  # exact build byproduct (reference CheckConserves)
+            def rank_a(x):
+                return sec_mod.rank_bits(x, La, nck, k)
 
-        for m, _perm, signs, coeffs in plan.groups:
-            m = int(m)
-            scale = float(np.sum(np.abs(coeffs)))
-            tol = _TOL * max(scale, 1e-300)
-            if m == 0:
-                diag_terms.extend(
-                    (complex(c), int(s)) for s, c in zip(signs, coeffs))
-                continue
-            mt, mr, ma = _split_mask(m, L, La, Lr)
-            if self.xparity:
-                assert mt == 0  # guaranteed by XParity.reduce_msc
-            s_tops = (np.asarray(signs, dtype=np.int64) >> (L - 1)) & 1
-            s_rs = (np.asarray(signs, dtype=np.int64) >> La) \
-                & ((1 << Lr) - 1)
-            s_as = np.asarray(signs, dtype=np.int64) & ((1 << La) - 1)
+            # every participating sector's half-state lists, as the channel
+            # loop and the merge read them
+            for s in self.secs:
+                hr_of(lay.kr[s])
+                sa_of(lay.ka[s])
 
-            for so in self.secs:
-                t_o, kr_o, ka_o = lay.t[so], lay.kr[so], lay.ka[so]
-                t_b = t_o ^ mt
-                sa_o = sa_of(ka_o)
-                sa_b = sa_o ^ ma
-                pcb = popcount(sa_b)
-                hr_o = hr_of(kr_o)
-                hr_b = hr_o ^ mr
-                kr_b = popcount(hr_b) if mr else np.full(len(hr_o), kr_o)
+        with tracing.span('build.sector_plan.channels'):
+            # channel accumulators
+            colmm = {}     # (si, so, mr, mt, s_r) -> M_cplx
+            rowmm = {}     # (si, so, s_a) -> N_cplx
+            diag_terms = []
+            # exact build byproduct (reference CheckConserves)
+            conserved = True
 
-                if ma:
-                    # column-matrix channels: one per realizable input
-                    # sector; terms subgrouped by the row part of the sign
-                    # (within a subgroup the row factor is shared, so the
-                    # alpha action is a single matrix)
-                    ra_b = rank_a(np.where(pcb <= k, sa_b, 0))
-                    subs = []  # (s_r, fa) per subgroup, beta-independent
-                    for s_r in np.unique(s_rs):
-                        tsel = s_rs == s_r
-                        w_top = 1 - 2.0 * ((t_b * s_tops[tsel]) & 1)
-                        wa = 1 - 2.0 * parity(
-                            sa_b[:, None] & s_as[None, tsel])
-                        subs.append((int(s_r), wa @ (coeffs[tsel] * w_top)))
-                    for kr_i in np.unique(kr_b):
-                        ka_i = k - t_b - kr_i
-                        slot = t_b * (Lr + 1) + kr_i
-                        si = int(lay.sec_tk[slot]) \
-                            if 0 <= ka_i <= La else -1
-                        live = si >= 0 and si in self.sec_index
-                        csel = (pcb == ka_i) if live \
-                            else np.zeros(len(sa_b), bool)
-                        # transitions leaving the subspace are dropped;
-                        # the operator conserves the sector only if their
-                        # total weight (summed over sign subgroups, which
-                        # can cancel) vanishes — reconstructed exactly as
-                        # a sum of outer products on the dropped entries
-                        if conserved and any(
-                                np.any(np.abs(fa[~csel]) > tol)
-                                for _sr, fa in subs):
-                            brow = np.nonzero(kr_b == kr_i)[0]
-                            F = np.zeros((len(brow), int((~csel).sum())),
-                                         dtype=np.complex128)
-                            for s_r, fa in subs:
-                                wr = 1 - 2.0 * parity(hr_b[brow] & s_r)
-                                F += np.outer(wr, fa[~csel])
-                            if np.any(np.abs(F) > tol):
-                                conserved = False
-                        if not live or not np.any(csel):
-                            continue
-                        rows = np.nonzero(csel)[0]
-                        for s_r, fa in subs:
-                            if not np.any(np.abs(fa[rows]) > 0):
-                                continue
-                            key = (si, so, mr, mt, s_r)
-                            M = colmm.get(key)
-                            if M is None:
-                                M = np.zeros((lay.na[so], lay.na[si]),
-                                             dtype=np.complex128)
-                                colmm[key] = M
-                            np.add.at(M, (rows, ra_b[rows]), fa[rows])
-                else:
-                    # row-matrix channels (mask confined to the high bits):
-                    # alpha is untouched, so the live channel needs
-                    # ka_i == ka_o; terms subgrouped by the low sign part
-                    subs = []  # (s_a, fb) per subgroup, alpha-independent
-                    for s_a in np.unique(s_as):
-                        tsel = s_as == s_a
-                        w_top = 1 - 2.0 * ((t_b * s_tops[tsel]) & 1)
-                        wr = 1 - 2.0 * parity(
-                            hr_b[:, None] & s_rs[None, tsel])
-                        subs.append((int(s_a), wr @ (coeffs[tsel] * w_top)))
-                    rb_b = rank_r(np.where(kr_b <= k, hr_b, 0))
-                    for kr_i in np.unique(kr_b):
-                        ka_i = k - t_b - kr_i
-                        slot = t_b * (Lr + 1) + kr_i
-                        si = int(lay.sec_tk[slot]) \
-                            if 0 <= ka_i <= La else -1
-                        live = (si >= 0 and si in self.sec_index
-                                and ka_i == ka_o)
-                        rsel = kr_b == kr_i
-                        if not live:
-                            brow = np.nonzero(rsel)[0]
+            for m, _perm, signs, coeffs in plan.groups:
+                m = int(m)
+                scale = float(np.sum(np.abs(coeffs)))
+                tol = _TOL * max(scale, 1e-300)
+                if m == 0:
+                    diag_terms.extend(
+                        (complex(c), int(s)) for s, c in zip(signs, coeffs))
+                    continue
+                mt, mr, ma = _split_mask(m, L, La, Lr)
+                if self.xparity:
+                    assert mt == 0  # guaranteed by XParity.reduce_msc
+                s_tops = (np.asarray(signs, dtype=np.int64) >> (L - 1)) & 1
+                s_rs = (np.asarray(signs, dtype=np.int64) >> La) \
+                    & ((1 << Lr) - 1)
+                s_as = np.asarray(signs, dtype=np.int64) & ((1 << La) - 1)
+
+                for so in self.secs:
+                    t_o, kr_o, ka_o = lay.t[so], lay.kr[so], lay.ka[so]
+                    t_b = t_o ^ mt
+                    sa_o = sa_of(ka_o)
+                    sa_b = sa_o ^ ma
+                    pcb = popcount(sa_b)
+                    hr_o = hr_of(kr_o)
+                    hr_b = hr_o ^ mr
+                    kr_b = popcount(hr_b) if mr else np.full(len(hr_o), kr_o)
+
+                    if ma:
+                        # column-matrix channels: one per realizable input
+                        # sector; terms subgrouped by the row part of the sign
+                        # (within a subgroup the row factor is shared, so the
+                        # alpha action is a single matrix)
+                        ra_b = rank_a(np.where(pcb <= k, sa_b, 0))
+                        subs = []  # (s_r, fa) per subgroup, beta-independent
+                        for s_r in np.unique(s_rs):
+                            tsel = s_rs == s_r
+                            w_top = 1 - 2.0 * ((t_b * s_tops[tsel]) & 1)
+                            wa = 1 - 2.0 * parity(
+                                sa_b[:, None] & s_as[None, tsel])
+                            subs.append((int(s_r),
+                                         wa @ (coeffs[tsel] * w_top)))
+                        for kr_i in np.unique(kr_b):
+                            ka_i = k - t_b - kr_i
+                            slot = t_b * (Lr + 1) + kr_i
+                            si = int(lay.sec_tk[slot]) \
+                                if 0 <= ka_i <= La else -1
+                            live = si >= 0 and si in self.sec_index
+                            csel = (pcb == ka_i) if live \
+                                else np.zeros(len(sa_b), bool)
+                            # transitions leaving the subspace are dropped;
+                            # the operator conserves the sector only if their
+                            # total weight (summed over sign subgroups, which
+                            # can cancel) vanishes — reconstructed exactly as
+                            # a sum of outer products on the dropped entries
                             if conserved and any(
-                                    np.any(np.abs(fb[brow]) > tol)
-                                    for _sa, fb in subs):
-                                F = np.zeros((len(brow), len(sa_o)),
+                                    np.any(np.abs(fa[~csel]) > tol)
+                                    for _sr, fa in subs):
+                                brow = np.nonzero(kr_b == kr_i)[0]
+                                F = np.zeros((len(brow), int((~csel).sum())),
                                              dtype=np.complex128)
-                                for s_a, fb in subs:
-                                    wa = 1 - 2.0 * parity(sa_o & s_a)
-                                    F += np.outer(fb[brow], wa)
+                                for s_r, fa in subs:
+                                    wr = 1 - 2.0 * parity(hr_b[brow] & s_r)
+                                    F += np.outer(wr, fa[~csel])
                                 if np.any(np.abs(F) > tol):
                                     conserved = False
-                            continue
-                        rows = np.nonzero(rsel)[0]
-                        for s_a, fb in subs:
-                            if not np.any(np.abs(fb[rows]) > 0):
+                            if not live or not np.any(csel):
                                 continue
-                            key = (si, so, s_a)
-                            N = rowmm.get(key)
-                            if N is None:
-                                N = np.zeros((lay.nb[so], lay.nb[si]),
-                                             dtype=np.complex128)
-                                rowmm[key] = N
-                            np.add.at(N, (rows, rb_b[rows]), fb[rows])
+                            rows = np.nonzero(csel)[0]
+                            for s_r, fa in subs:
+                                if not np.any(np.abs(fa[rows]) > 0):
+                                    continue
+                                key = (si, so, mr, mt, s_r)
+                                M = colmm.get(key)
+                                if M is None:
+                                    M = np.zeros((lay.na[so], lay.na[si]),
+                                                 dtype=np.complex128)
+                                    colmm[key] = M
+                                np.add.at(M, (rows, ra_b[rows]), fa[rows])
+                    else:
+                        # row-matrix channels (mask confined to the high bits):
+                        # alpha is untouched, so the live channel needs
+                        # ka_i == ka_o; terms subgrouped by the low sign part
+                        subs = []  # (s_a, fb) per subgroup, alpha-independent
+                        for s_a in np.unique(s_as):
+                            tsel = s_as == s_a
+                            w_top = 1 - 2.0 * ((t_b * s_tops[tsel]) & 1)
+                            wr = 1 - 2.0 * parity(
+                                hr_b[:, None] & s_rs[None, tsel])
+                            subs.append((int(s_a),
+                                         wr @ (coeffs[tsel] * w_top)))
+                        rb_b = rank_r(np.where(kr_b <= k, hr_b, 0))
+                        for kr_i in np.unique(kr_b):
+                            ka_i = k - t_b - kr_i
+                            slot = t_b * (Lr + 1) + kr_i
+                            si = int(lay.sec_tk[slot]) \
+                                if 0 <= ka_i <= La else -1
+                            live = (si >= 0 and si in self.sec_index
+                                    and ka_i == ka_o)
+                            rsel = kr_b == kr_i
+                            if not live:
+                                brow = np.nonzero(rsel)[0]
+                                if conserved and any(
+                                        np.any(np.abs(fb[brow]) > tol)
+                                        for _sa, fb in subs):
+                                    F = np.zeros((len(brow), len(sa_o)),
+                                                 dtype=np.complex128)
+                                    for s_a, fb in subs:
+                                        wa = 1 - 2.0 * parity(sa_o & s_a)
+                                        F += np.outer(fb[brow], wa)
+                                    if np.any(np.abs(F) > tol):
+                                        conserved = False
+                                continue
+                            rows = np.nonzero(rsel)[0]
+                            for s_a, fb in subs:
+                                if not np.any(np.abs(fb[rows]) > 0):
+                                    continue
+                                key = (si, so, s_a)
+                                N = rowmm.get(key)
+                                if N is None:
+                                    N = np.zeros((lay.nb[so], lay.nb[si]),
+                                                 dtype=np.complex128)
+                                    rowmm[key] = N
+                                np.add.at(N, (rows, rb_b[rows]), fb[rows])
 
-        self.conserved = conserved
+            self.conserved = conserved
 
-        # ---- finalize channels ------------------------------------------
-        # column channels need the row gather index and a row scale (the
-        # validity mask times the rest-part Walsh sign). Subgroups whose
-        # row scales agree up to a global sign merge into one channel with
-        # the sign folded into the matrix — e.g. the XX and YY parts of a
-        # boundary hop, whose sign bits sit inside the mask and are
-        # therefore constant on each channel.
-        pre = {}
-        pre_order = []
-        for (si, so, mr, mt, s_r), M in colmm.items():
-            if not np.any(np.abs(M) > 0):
-                continue
-            kr_i = lay.kr[si]
-            hr_o = hr_of(lay.kr[so])
-            hr_b = hr_o ^ mr
-            valid = popcount(hr_b) == kr_i
-            bidx = np.where(valid, rank_r(np.where(valid, hr_b, 0)), 0)
-            w = ((1 - 2.0 * parity(hr_b & s_r)) * valid).astype(np.float64)
-            sign = 1.0
-            nzi = np.nonzero(w)[0]
-            if len(nzi) and w[nzi[0]] < 0:
-                sign = -1.0
-            wc = w * sign + 0.0  # +0.0 canonicalizes -0.0 on masked rows
-            bidx_arr = None if (mr == 0 and np.all(valid)) \
-                else bidx.astype(np.int32)
-            key = (si, so,
-                   None if bidx_arr is None else bidx_arr.tobytes(),
-                   wc.tobytes())
-            ent = pre.get(key)
-            if ent is None:
-                pre[key] = [bidx_arr, wc, sign * M]
-                pre_order.append(key)
-            else:
-                ent[2] = ent[2] + sign * M
+        with tracing.span('build.sector_plan.merge'):
+            # ---- finalize channels ------------------------------------------
+            # column channels need the row gather index and a row scale (the
+            # validity mask times the rest-part Walsh sign). Subgroups whose
+            # row scales agree up to a global sign merge into one channel with
+            # the sign folded into the matrix — e.g. the XX and YY parts of a
+            # boundary hop, whose sign bits sit inside the mask and are
+            # therefore constant on each channel.
+            pre = {}
+            pre_order = []
+            for (si, so, mr, mt, s_r), M in colmm.items():
+                if not np.any(np.abs(M) > 0):
+                    continue
+                kr_i = lay.kr[si]
+                hr_o = hr_of(lay.kr[so])
+                hr_b = hr_o ^ mr
+                valid = popcount(hr_b) == kr_i
+                bidx = np.where(valid, rank_r(np.where(valid, hr_b, 0)), 0)
+                w = ((1 - 2.0 * parity(hr_b & s_r)) * valid).astype(np.float64)
+                sign = 1.0
+                nzi = np.nonzero(w)[0]
+                if len(nzi) and w[nzi[0]] < 0:
+                    sign = -1.0
+                wc = w * sign + 0.0  # +0.0 canonicalizes -0.0 on masked rows
+                bidx_arr = None if (mr == 0 and np.all(valid)) \
+                    else bidx.astype(np.int32)
+                key = (si, so,
+                       None if bidx_arr is None else bidx_arr.tobytes(),
+                       wc.tobytes())
+                ent = pre.get(key)
+                if ent is None:
+                    pre[key] = [bidx_arr, wc, sign * M]
+                    pre_order.append(key)
+                else:
+                    ent[2] = ent[2] + sign * M
 
-        self.col_channels = []   # (si, so, bidx|None, W|None, Mr, Mi|None)
-        for key in pre_order:
-            si, so = key[0], key[1]
-            bidx_arr, wc, M = pre[key]
-            if not np.any(np.abs(M) > 0):
-                continue
-            W = None if np.all(wc == 1.0) else wc.astype(real_dtype)
-            Mr = np.ascontiguousarray(M.real, dtype=real_dtype)
-            Mi = np.ascontiguousarray(M.imag, dtype=real_dtype) \
-                if np.any(np.abs(M.imag) > 0) else None
-            self.col_channels.append((si, so, bidx_arr, W, Mr, Mi))
+            self.col_channels = []   # (si, so, bidx|None, W|None, Mr, Mi|None)
+            for key in pre_order:
+                si, so = key[0], key[1]
+                bidx_arr, wc, M = pre[key]
+                if not np.any(np.abs(M) > 0):
+                    continue
+                W = None if np.all(wc == 1.0) else wc.astype(real_dtype)
+                Mr = np.ascontiguousarray(M.real, dtype=real_dtype)
+                Mi = np.ascontiguousarray(M.imag, dtype=real_dtype) \
+                    if np.any(np.abs(M.imag) > 0) else None
+                self.col_channels.append((si, so, bidx_arr, W, Mr, Mi))
 
-        # row channels: same merging on the column scale
-        rpre = {}
-        rpre_order = []
-        for (si, so, s_a), N in rowmm.items():
-            if not np.any(np.abs(N) > 0):
-                continue
-            sa_o = sa_of(lay.ka[so])
-            ca = (1 - 2.0 * parity(sa_o & s_a)).astype(np.float64)
-            sign = 1.0
-            if ca[0] < 0:
-                sign = -1.0
-            cc = ca * sign
-            key = (si, so, cc.tobytes())
-            ent = rpre.get(key)
-            if ent is None:
-                rpre[key] = [cc, sign * N]
-                rpre_order.append(key)
-            else:
-                ent[1] = ent[1] + sign * N
+            # row channels: same merging on the column scale
+            rpre = {}
+            rpre_order = []
+            for (si, so, s_a), N in rowmm.items():
+                if not np.any(np.abs(N) > 0):
+                    continue
+                sa_o = sa_of(lay.ka[so])
+                ca = (1 - 2.0 * parity(sa_o & s_a)).astype(np.float64)
+                sign = 1.0
+                if ca[0] < 0:
+                    sign = -1.0
+                cc = ca * sign
+                key = (si, so, cc.tobytes())
+                ent = rpre.get(key)
+                if ent is None:
+                    rpre[key] = [cc, sign * N]
+                    rpre_order.append(key)
+                else:
+                    ent[1] = ent[1] + sign * N
 
-        self.row_channels = []   # (si, so, ca|None, Nr, Ni|None)
-        for key in rpre_order:
-            si, so = key[0], key[1]
-            cc, N = rpre[key]
-            if not np.any(np.abs(N) > 0):
-                continue
-            ca_arr = None if np.all(cc == 1.0) else cc.astype(real_dtype)
-            Nr = np.ascontiguousarray(N.real, dtype=real_dtype)
-            Ni = np.ascontiguousarray(N.imag, dtype=real_dtype) \
-                if np.any(np.abs(N.imag) > 0) else None
-            self.row_channels.append((si, so, ca_arr, Nr, Ni))
+            self.row_channels = []   # (si, so, ca|None, Nr, Ni|None)
+            for key in rpre_order:
+                si, so = key[0], key[1]
+                cc, N = rpre[key]
+                if not np.any(np.abs(N) > 0):
+                    continue
+                ca_arr = None if np.all(cc == 1.0) else cc.astype(real_dtype)
+                Nr = np.ascontiguousarray(N.real, dtype=real_dtype)
+                Ni = np.ascontiguousarray(N.imag, dtype=real_dtype) \
+                    if np.any(np.abs(N.imag) > 0) else None
+                self.row_channels.append((si, so, ca_arr, Nr, Ni))
 
-        # ---- diagonal stream --------------------------------------------
-        # built on device with torch ops over the index map — the host
-        # equivalent moves O(nterms * dim) complex doubles and dominated
-        # the JAX package's build at large L (the reference's
-        # PrecomputeDiagonal analog, bpetsc_template_1.c:169-202)
-        self.diag = None
-        self.diag_terms = diag_terms
-        if diag_terms and with_diag:
-            self.diag = self._diagonal(plan, device)
+        with tracing.span('build.sector_plan.diagonal'):
+            # ---- diagonal stream --------------------------------------------
+            # built on device with torch ops over the index map — the host
+            # equivalent moves O(nterms * dim) complex doubles and dominated
+            # the JAX package's build at large L (the reference's
+            # PrecomputeDiagonal analog, bpetsc_template_1.c:169-202)
+            self.diag = None
+            self.diag_terms = diag_terms
+            if diag_terms and with_diag:
+                self.diag = self._diagonal(plan, device)
 
-        self._dedup()
+        with tracing.span('build.sector_plan.dedup'):
+            self._dedup()
 
     def _diagonal(self, plan, device):
         dtype = torch.float64 if self.real_dtype == np.float64 \
@@ -629,29 +653,35 @@ class SectorTables:
     def on(self, dtype, device):
         """(col_channels, row_channels, diag) with every array a tensor on
         ``device`` (floats in ``dtype``); a matrix shared by several
-        channels is copied once. Built once per (dtype, device)."""
+        channels is copied once. Built once per (dtype, device), in the
+        span ``build.upload``, counted in ``build.uploads``."""
         key = (dtype, device)
         if key not in self._on:
-            moved = {}
-
-            def put(a, index=False):
-                if a is None:
-                    return None
-                if id(a) not in moved:
-                    t = torch.as_tensor(a, device=device)
-                    moved[id(a)] = t.long() if index else t.to(dtype)
-                return moved[id(a)]
-
-            diag = self.plan.diag
-            self._on[key] = (
-                [(si, so, put(b, True), put(w), put(mr), put(mi))
-                 for si, so, b, w, mr, mi in self.col_channels],
-                [(si, so, put(ca), put(nr), put(ni))
-                 for si, so, ca, nr, ni in self.row_channels],
-                None if diag is None else tuple(
-                    None if d is None else d.to(device=device, dtype=dtype)
-                    for d in diag))
+            with tracing.span('build.upload'):
+                self._upload(key, dtype, device)
         return self._on[key]
+
+    def _upload(self, key, dtype, device):
+        tracing.count('build.uploads')
+        moved = {}
+
+        def put(a, index=False):
+            if a is None:
+                return None
+            if id(a) not in moved:
+                t = torch.as_tensor(a, device=device)
+                moved[id(a)] = t.long() if index else t.to(dtype)
+            return moved[id(a)]
+
+        diag = self.plan.diag
+        self._on[key] = (
+            [(si, so, put(b, True), put(w), put(mr), put(mi))
+             for si, so, b, w, mr, mi in self.col_channels],
+            [(si, so, put(ca), put(nr), put(ni))
+             for si, so, ca, nr, ni in self.row_channels],
+            None if diag is None else tuple(
+                None if d is None else d.to(device=device, dtype=dtype)
+                for d in diag))
 
 
 def sector_apply(x, tables):
@@ -664,8 +694,8 @@ def sector_apply(x, tables):
     view of y; each row channel adds N @ (X_si ⊙ ca) the same way. A
     complex matrix takes one product for its real part over both planes
     and one for each plane of its imaginary part. Counts one call in
-    ``sector_apply.applies``; it launches no kernel of its own (the
-    products are cuBLAS's)."""
+    ``sector.applies`` (:mod:`..tracing`); it launches no kernel of its own
+    (the products are cuBLAS's)."""
     col_channels, row_channels, diag = tables.on(x.dtype, x.device)
     blocks = tables.blocks
     xs = [x[:, o:o + nb * na].view(2, nb, na) for o, nb, na in blocks]
@@ -694,11 +724,8 @@ def sector_apply(x, tables):
         if Ni is not None:
             ys[so][0].addmm_(Ni, src[1], alpha=-1)
             ys[so][1].addmm_(Ni, src[0])
-    sector_apply.applies += 1
+    tracing.count('sector.applies')
     return y
-
-
-sector_apply.applies = 0
 
 
 def sector_apply_reference(x, plan):

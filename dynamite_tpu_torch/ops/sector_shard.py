@@ -37,6 +37,7 @@ reads.
 import numpy as np
 import torch
 
+from .. import tracing
 from .apply import _Sharded, ring
 from .ell import _key
 from .sector_apply import SectorPlan, diagonal_at
@@ -202,10 +203,9 @@ class SectorRing(_Sharded):
     :class:`AlphaLayout`; ``on(dtype, device)`` the ranks'
     :class:`_RankTables`, built here in ``config``'s dtype on
     ``config.device``. Counts its applies, one per rank, in
-    ``SectorRing.applies``."""
+    ``sector.ring_applies`` (:mod:`..tracing`)."""
 
     engine = 'sector_ring'
-    applies = 0
 
     def __init__(self, plan, left, right, transport):
         from .. import config
@@ -349,6 +349,6 @@ class SectorRing(_Sharded):
 
         ys = ring(transport, ye, conv_out,
                   [x.new_zeros((2, local_can)) for x in xs])
-        SectorRing.applies += len(ys)
+        tracing.count('sector.ring_applies', len(ys))
         return ys
 

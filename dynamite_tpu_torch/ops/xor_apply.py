@@ -48,6 +48,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import tracing
 from ..utils.bitwise import parity as parity_np
 from ..utils.build import CSRC, NVCC_FLAGS, build_shared_library, find_nvcc
 from .index_maps import parity
@@ -615,33 +616,41 @@ def _launch(srcs, tables, row0):
 def _block_args(tables, row0, dtype, device):
     """The XorArgs of the launches on one block of a
     :class:`ShardedXorTables`, but for the output and the sources: built at
-    the block's first launch (with its diagonal stream) and kept on the
-    layout per (dtype, device, row0), so a launch only copies it. Every
-    pointer in it is to a tensor the tables keep."""
+    the block's first launch (with its diagonal stream; the span
+    ``build.upload``, counted in ``build.uploads``) and kept on the layout
+    per (dtype, device, row0), so a launch only copies it. Every pointer in
+    it is to a tensor the tables keep."""
     key = (dtype, device, int(row0))
     if key not in tables._launch_args:
-        t = tables.tables
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        tile_bits, rows = tile_shape(tables.local_bits, itemsize)
-        plan = t.tiles(tile_bits, rows)
-        if plan.smem_bytes(itemsize) > _MAX_SMEM:
-            raise NotImplementedError(
-                f'xor_apply: {t.n_terms} terms exceed the shared-memory '
-                'tables; many-mask operators (SYK) need the XOR-dense engine '
-                '(ROADMAP.md queue 1, item 9)')
-        if tables.local_dim >> tile_bits >= 1 << 31:
-            raise ValueError('xor_apply: dimension exceeds one launch grid')
-        a = _args(plan, tables, row0, dtype, device)
-        m_lo, src_idx = tables.on(device)
-        a.group_mlo = m_lo.data_ptr()
-        a.group_src = src_idx.data_ptr()
-        if t.use_diag:
-            d = _diagonal(tables, row0, dtype, device)
-            a.diag = d.data_ptr()
-            a.diag_planes = d.shape[0]
-            a.diag_src = tables.diag_src
-        tables._launch_args[key] = a
+        tracing.count('build.uploads')
+        with tracing.span('build.upload'):
+            tables._launch_args[key] = _new_block_args(tables, row0, dtype,
+                                                       device)
     return tables._launch_args[key]
+
+
+def _new_block_args(tables, row0, dtype, device):
+    t = tables.tables
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    tile_bits, rows = tile_shape(tables.local_bits, itemsize)
+    plan = t.tiles(tile_bits, rows)
+    if plan.smem_bytes(itemsize) > _MAX_SMEM:
+        raise NotImplementedError(
+            f'xor_apply: {t.n_terms} terms exceed the shared-memory '
+            'tables; many-mask operators (SYK) need the XOR-dense engine '
+            '(ROADMAP.md queue 1, item 9)')
+    if tables.local_dim >> tile_bits >= 1 << 31:
+        raise ValueError('xor_apply: dimension exceeds one launch grid')
+    a = _args(plan, tables, row0, dtype, device)
+    m_lo, src_idx = tables.on(device)
+    a.group_mlo = m_lo.data_ptr()
+    a.group_src = src_idx.data_ptr()
+    if t.use_diag:
+        d = _diagonal(tables, row0, dtype, device)
+        a.diag = d.data_ptr()
+        a.diag_planes = d.shape[0]
+        a.diag_src = tables.diag_src
+    return a
 
 
 def _diagonal(tables, row0, dtype, device):
@@ -687,7 +696,8 @@ def xor_diagonal(tables, row0, dtype, device):
     transform per tile of ``2**DIAG_TILE_BITS`` rows, over the tables of
     :meth:`XorTables.diag_plan`; a block of fewer rows takes its rows of
     the tile that holds it) and counts one launch in
-    ``xor_diagonal.launches``; on the CPU it runs the plain version."""
+    ``xor.diagonal_launches`` (:mod:`..tracing`); on the CPU it runs the
+    plain version."""
     t = tables.tables
     if not t.use_diag:
         raise ValueError('xor_diagonal: the operator has no diagonal stream')
@@ -699,17 +709,14 @@ def xor_diagonal(tables, row0, dtype, device):
     _check_card(d, 'xor_diagonal')
     _run('xor_diagonal_f32' if dtype == torch.float32 else 'xor_diagonal_f64',
          _diagonal_args(tables, row0, d), device, 'xor_diagonal')
-    xor_diagonal.launches += 1
+    tracing.count('xor.diagonal_launches')
     return d
-
-
-xor_diagonal.launches = 0
 
 
 def xor_apply(x, tables):
     """y = H x for a (2, dim) float32/float64 tensor holding every row: the
     sharded route with one block (one source, row offset 0), so its launches
-    count in ``xor_apply_sharded.launches``."""
+    count in ``xor.launches``."""
     if tables.n_groups == 0:
         return torch.zeros_like(x)
     return xor_apply_sharded([x], tables.for_layout(tables.nbits), 0)
@@ -723,7 +730,7 @@ def xor_apply_sharded(srcs, tables, row0):
     source per entry of ``hi_list``, the global row offset and, when the
     operator has one, the block's diagonal stream (built at the block's
     first launch, see :func:`xor_diagonal`); they count one launch in
-    ``xor_apply_sharded.launches``. CPU tensors run the plain version.
+    ``xor.launches`` (:mod:`..tracing`). CPU tensors run the plain version.
     Nothing falls back: an unusable input or a failed build or launch
     raises."""
     if tables.tables.n_groups == 0:
@@ -732,8 +739,5 @@ def xor_apply_sharded(srcs, tables, row0):
     if srcs[0].device.type == 'cpu':
         return xor_apply_sharded_reference(srcs, tables, row0)
     y = _launch(list(srcs), tables, row0)
-    xor_apply_sharded.launches += 1
+    tracing.count('xor.launches')
     return y
-
-
-xor_apply_sharded.launches = 0

@@ -64,6 +64,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..utils.bitwise import parity
 from .ell import ell_budget
 from .xor_apply import hi_list
@@ -333,10 +334,17 @@ class XorDenseTables:
         (mh, sh) of local row h reads row src * nh_local + (h ^ (mh &
         (nh_local - 1))), src its source's index in the layout's hi_list,
         with the sign (-1)^pc((rank * nh_local + h) & sh); a padded channel
-        reads row h, with sign 0."""
+        reads row h, with sign 0. The first call for a key is the span
+        ``build.upload``, counted in ``build.uploads``."""
         key = (int(rank), int(world), dtype, device)
-        if key in self._rank_tables:
-            return self._rank_tables[key]
+        if key not in self._rank_tables:
+            tracing.count('build.uploads')
+            with tracing.span('build.upload'):
+                self._rank_tables[key] = self._upload(dtype, device, rank,
+                                                      world)
+        return self._rank_tables[key]
+
+    def _upload(self, dtype, device, rank, world):
         local_bits = _local_bits(self.nbits, world)
         lay = self.layout(local_bits)
         nhl = 1 << (local_bits - self.La)
@@ -359,7 +367,6 @@ class XorDenseTables:
                 wh.reshape(nb, KB, nhl).transpose(0, 2, 1)[..., None].copy(),
                 device=device).to(dtype)
             runs.append((imag, Mt, ridx, wt, KB))
-        self._rank_tables[key] = runs
         return runs
 
 
@@ -432,7 +439,7 @@ def xor_dense_apply_sharded(srcs, tables, row0):
     the layout (:meth:`XorDenseTables.layout`). Torch ops on x's device and
     in x's dtype; for a batch of channels one row gather from the stacked
     sources, one sign multiply and one ``addmm_`` (two for the imaginary
-    class). Counts one call in ``xor_dense_apply.applies``; it launches no
+    class). Counts one call in ``xor_dense.applies``; it launches no
     kernel of its own (the products are cuBLAS's). An unusable input
     raises."""
     n = srcs[0].shape[-1]
@@ -471,15 +478,12 @@ def xor_dense_apply_sharded(srcs, tables, row0):
                 yv[nhl:].addmm_(A[0], Bt)
             else:
                 yv.addmm_(A.view(2 * nhl, KB * na), Bt)
-    xor_dense_apply.applies += 1
+    tracing.count('xor_dense.applies')
     return y
 
 
 def xor_dense_apply(x, tables):
     """y = H x on (2, dim) planes holding every row: the sharded apply with
     one block (one source, row offset 0), counted in
-    ``xor_dense_apply.applies``."""
+    ``xor_dense.applies``."""
     return xor_dense_apply_sharded([x], tables, 0)
-
-
-xor_dense_apply.applies = 0

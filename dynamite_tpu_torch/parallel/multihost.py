@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
+
 # jax.distributed's coordinator port under SLURM and Open MPI: one of the
 # 4096 ports up to 65535, chosen by the job id
 _PORT_BASE = 65536 - 4096
@@ -287,10 +289,13 @@ def shutdown():
         dist.destroy_process_group()
 
 
-def collective(fn, *args, **kwargs):
+def collective(fn, *args, name=None, **kwargs):
     """Post one collective step of the port, ``fn(*args, **kwargs)`` (a
     ``torch.distributed`` call, or a function of a few that every rank
-    calls at the same step), and count it in ``collective.posted``. Every
+    calls at the same step), and count it in ``collective.posted``. The
+    step is the span ``transport.<name>`` and counts one call in
+    ``transport.<name>.calls`` (:mod:`..tracing`); ``name`` is ``fn``'s
+    own by default (``all_reduce``, ``broadcast_object_list``, ...). Every
     rank takes the port's steps in the same order and counts each once,
     whether it sends, receives or has no part in it, so the counts of the
     ranks of a group are equal wherever no rank stopped short of a step
@@ -303,10 +308,13 @@ def collective(fn, *args, **kwargs):
     but sets ``collective.held``, and the KeyboardInterrupt is raised here
     once the step is through. (A rank blocked in a step that another rank
     never takes stays blocked; the session restarts the group.)"""
+    span = 'transport.' + (name or fn.__name__.lstrip('_'))
+    tracing.count(span + '.calls')
     collective.depth += 1
     try:
         collective.posted += 1
-        out = fn(*args, **kwargs)
+        with tracing.span(span):
+            out = fn(*args, **kwargs)
     finally:
         collective.depth -= 1
         held = collective.held and not collective.depth
@@ -434,14 +442,20 @@ def host_id():
 
 def allreduce_sum_(t):
     """Sum a device tensor over ranks, in place; returns it. Enqueued on the
-    device (NCCL) with no host synchronization."""
+    device (NCCL) with no host synchronization. Counts the tensor's bytes
+    in ``transport.all_reduce.bytes``."""
     if world_size() > 1:
         collective(dist.all_reduce, t, op=dist.ReduceOp.SUM)
+        tracing.count('transport.all_reduce.bytes',
+                      t.numel() * t.element_size())
     return t
 
 
 def allreduce_max_(t):
-    """Max of a device tensor over ranks, in place; returns it."""
+    """Max of a device tensor over ranks, in place; returns it (its bytes
+    counted as :func:`allreduce_sum_` counts them)."""
     if world_size() > 1:
         collective(dist.all_reduce, t, op=dist.ReduceOp.MAX)
+        tracing.count('transport.all_reduce.bytes',
+                      t.numel() * t.element_size())
     return t

@@ -11,6 +11,7 @@ symmetric arrowhead+tridiagonal matrix) is solved on the host with numpy.
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import draw
 from ..parallel import mesh
 from . import krylov
@@ -75,7 +76,16 @@ def eigsolve_trlanczos(kops, dim, dtype, device, nev=1, which='lowest',
     if stats is None:
         stats = {}
     stats.update(restarts=0, matvecs=0, host_syncs=0, verify_cycles=0)
+    with krylov.counting_syncs(stats):
+        return _restarted(kops, dim, dtype, device, nev, which, tol,
+                          max_restarts, seed, v0, stats, tol_scale)
 
+
+def _restarted(kops, dim, dtype, device, nev, which, tol, max_restarts, seed,
+               v0, stats, tol_scale):
+    """The restart loop of :func:`eigsolve_trlanczos` (its arguments, with
+    the defaults filled in and the start vector normalized)."""
+    m = kops.m
     # number of Ritz pairs retained through a restart
     p = min(m - 1, max(nev + 5, (m + nev) // 2))
 
@@ -85,7 +95,8 @@ def eigsolve_trlanczos(kops, dim, dtype, device, nev=1, which='lowest',
     beta_h = krylov.host(beta)
 
     # projected matrix: tridiagonal on the first cycle
-    M = _tridiag(alpha_h, beta_h)
+    with tracing.span('solver.ritz'):
+        M = _tridiag(alpha_h, beta_h)
     beta_res = beta_h[m - 1]
 
     # A single-vector Krylov space sees exactly one direction of each
@@ -100,20 +111,23 @@ def eigsolve_trlanczos(kops, dim, dtype, device, nev=1, which='lowest',
     verified_vals = None
 
     for restart in range(max_restarts):
-        theta, S = np.linalg.eigh(M)
-        order = _ordering(theta, which)
-        theta = theta[order]
-        S = S[:, order]
+        with tracing.span('solver.ritz'):
+            theta, S = np.linalg.eigh(M)
+            order = _ordering(theta, which)
+            theta = theta[order]
+            S = S[:, order]
 
-        # residual estimate per Ritz pair: |beta_m * (last component)|
-        resid = np.abs(beta_res * S[m - 1, :])
-        # convergence is relative to the eigenvalue, floored at tol_scale
-        scale = np.maximum(np.abs(theta),
-                           tol_scale if tol_scale is not None else 1e-30)
-        converged = resid <= tol * scale
-        # the largest relative residual estimate of the wanted pairs at the
-        # last check (what a solve that runs out of restarts leaves)
-        stats['residual_estimate'] = float(np.max(resid[:nev] / scale[:nev]))
+            # residual estimate per Ritz pair: |beta_m * (last component)|
+            resid = np.abs(beta_res * S[m - 1, :])
+            # convergence is relative to the eigenvalue, floored at
+            # tol_scale
+            scale = np.maximum(np.abs(theta),
+                               tol_scale if tol_scale is not None else 1e-30)
+            converged = resid <= tol * scale
+            # the largest relative residual estimate of the wanted pairs at
+            # the last check (what a solve that runs out of restarts leaves)
+            stats['residual_estimate'] = float(
+                np.max(resid[:nev] / scale[:nev]))
 
         if np.all(converged[:nev]):
             nconv = nev
@@ -131,8 +145,9 @@ def eigsolve_trlanczos(kops, dim, dtype, device, nev=1, which='lowest',
             # fresh random direction ----
             verified_vals = cur
             p_v = min(nconv, m - 2)
-            C = np.zeros((m + 1, m + 1))
-            C[:p_v, :m] = S[:, :p_v].T
+            with tracing.span('solver.ritz'):
+                C = np.zeros((m + 1, m + 1))
+                C[:p_v, :m] = S[:, :p_v].T
             V = krylov.recombine_basis(
                 V, torch.as_tensor(C, dtype=dtype, device=device))
             w = random_start(dim, dtype, device,
@@ -140,51 +155,54 @@ def eigsolve_trlanczos(kops, dim, dtype, device, nev=1, which='lowest',
             V[p_v] = krylov.orthonormalize_against(V[:p_v], w)
 
             V, alpha, beta = kops.lanczos_restarted(V, p_v)
+            # the alpha fetch and the beta fetch: two host syncs
             alpha_h = krylov.host(alpha)
             beta_h = krylov.host(beta)
             stats['verify_cycles'] += 1
             stats['matvecs'] += m - p_v
-            stats['host_syncs'] += 2
 
             # locked pairs are eigen-directions up to tol: their coupling
             # to the injected direction is below the convergence floor, so
             # the projected matrix is block diagonal(theta_locked) (+)
             # tridiagonal(active)
-            M = np.zeros((m, m))
-            M[:p_v, :p_v] = np.diag(theta[:p_v])
-            for j in range(p_v, m):
-                M[j, j] = alpha_h[j]
-            for j in range(p_v, m - 1):
-                M[j, j + 1] = beta_h[j]
-                M[j + 1, j] = beta_h[j]
-            beta_res = beta_h[m - 1]
+            with tracing.span('solver.ritz'):
+                M = np.zeros((m, m))
+                M[:p_v, :p_v] = np.diag(theta[:p_v])
+                for j in range(p_v, m):
+                    M[j, j] = alpha_h[j]
+                for j in range(p_v, m - 1):
+                    M[j, j + 1] = beta_h[j]
+                    M[j + 1, j] = beta_h[j]
+                beta_res = beta_h[m - 1]
             continue
 
         # ---- thick restart ----
-        C = np.zeros((m + 1, m + 1))
-        C[:p, :m] = S[:, :p].T           # retained Ritz vectors
-        C[p, m] = 1.0                    # the residual direction v_m
+        with tracing.span('solver.ritz'):
+            C = np.zeros((m + 1, m + 1))
+            C[:p, :m] = S[:, :p].T           # retained Ritz vectors
+            C[p, m] = 1.0                    # the residual direction v_m
         V = krylov.recombine_basis(
             V, torch.as_tensor(C, dtype=dtype, device=device))
 
         V, alpha, beta = kops.lanczos_restarted(V, p)
+        # the alpha fetch and the beta fetch: two host syncs
         alpha_h = krylov.host(alpha)
         beta_h = krylov.host(beta)
         stats['restarts'] += 1
         stats['matvecs'] += m - p
-        stats['host_syncs'] += 2  # recombine upload + alpha/beta fetch
 
-        M = np.zeros((m, m))
-        M[:p, :p] = np.diag(theta[:p])
-        spike = beta_res * S[m - 1, :p]
-        M[:p, p] = spike
-        M[p, :p] = spike
-        for j in range(p, m):
-            M[j, j] = alpha_h[j]
-        for j in range(p, m - 1):
-            M[j, j + 1] = beta_h[j]
-            M[j + 1, j] = beta_h[j]
-        beta_res = beta_h[m - 1]
+        with tracing.span('solver.ritz'):
+            M = np.zeros((m, m))
+            M[:p, :p] = np.diag(theta[:p])
+            spike = beta_res * S[m - 1, :p]
+            M[:p, p] = spike
+            M[p, :p] = spike
+            for j in range(p, m):
+                M[j, j] = alpha_h[j]
+            for j in range(p, m - 1):
+                M[j, j + 1] = beta_h[j]
+                M[j + 1, j] = beta_h[j]
+            beta_res = beta_h[m - 1]
 
     raise MaxIterationsError(
         'eigensolver reached maximum number of restarts without converging. '

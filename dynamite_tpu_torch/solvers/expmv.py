@@ -16,6 +16,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from .. import tracing
 from . import krylov
 
 
@@ -60,7 +61,8 @@ def expmv(kops, v, scale, anorm, ncv=30, tol=1e-7, max_its=None,
     stats : dict, optional
         Filled with solver counters: substeps, rejected_steps, matvecs,
         host_syncs (ONE per substep: the input norm, the tridiagonal
-        coefficients and the residual-direction norm come back together).
+        coefficients and the residual-direction norm come back together;
+        counted by ``solver.syncs``, :func:`.krylov.counting_syncs`).
 
     Returns
     -------
@@ -88,78 +90,81 @@ def expmv(kops, v, scale, anorm, ncv=30, tol=1e-7, max_its=None,
         stats = {}
     stats.update(substeps=0, rejected_steps=0, matvecs=0, host_syncs=0)
 
-    w = v
-    t_now = 0.0
-    n_steps = 0
-    rndoff = anorm * np.finfo(np.float64).eps
+    with krylov.counting_syncs(stats):
+        w = v
+        t_now = 0.0
+        n_steps = 0
+        rndoff = anorm * np.finfo(np.float64).eps
 
-    while t_now < t_total:
-        if n_steps >= max_its:
-            raise MaxIterationsError(
-                'expmv reached the maximum number of substeps without '
-                'completing; try increasing max_its or ncv')
-        n_steps += 1
+        while t_now < t_total:
+            if n_steps >= max_its:
+                raise MaxIterationsError(
+                    'expmv reached the maximum number of substeps without '
+                    'completing; try increasing max_its or ncv')
+            n_steps += 1
 
-        tau = min(t_total - t_now, t_step)
+            tau = min(t_total - t_now, t_step)
 
-        V, host = kops.lanczos_step(w)
-        alpha_h, beta_h = host[:m], host[m:2 * m]
-        beta, avnorm = float(host[2 * m]), float(host[2 * m + 1])
-        stats['host_syncs'] += 1
-        stats['matvecs'] += m + 1
-        if beta == 0:
-            return w
+            V, host = kops.lanczos_step(w)
+            alpha_h, beta_h = host[:m], host[m:2 * m]
+            beta, avnorm = float(host[2 * m]), float(host[2 * m + 1])
+            stats['matvecs'] += m + 1
+            if beta == 0:
+                return w
 
-        # detect happy breakdown: the Krylov space closed early
-        tiny = max(1e-14 * max(anorm, 1.0), 1e-300)
-        breakdown = np.nonzero(beta_h[:m - 1] < tiny)[0]
-        k_eff = int(breakdown[0]) + 1 if breakdown.size else m
-        happy = breakdown.size > 0
+            # detect happy breakdown: the Krylov space closed early
+            tiny = max(1e-14 * max(anorm, 1.0), 1e-300)
+            breakdown = np.nonzero(beta_h[:m - 1] < tiny)[0]
+            k_eff = int(breakdown[0]) + 1 if breakdown.size else m
+            happy = breakdown.size > 0
 
-        # inner adaptive loop: shrink tau until the local error passes
-        while True:
-            T_aug = _augmented_matrix(alpha_h, beta_h, k_eff, happy)
-            F = scipy.linalg.expm(direction * tau * T_aug)
+            # inner adaptive loop: shrink tau until the local error passes
+            # (the host's expm of the projection)
+            with tracing.span('solver.expm'):
+                while True:
+                    T_aug = _augmented_matrix(alpha_h, beta_h, k_eff, happy)
+                    F = scipy.linalg.expm(direction * tau * T_aug)
 
-            if happy:
-                err_loc = tiny
-                mx = k_eff
-            else:
-                err1 = abs(beta * F[m, 0])
-                err2 = abs(beta * F[m + 1, 0]) * avnorm
-                if err1 > 10 * err2:
-                    err_loc = err2
-                elif err1 > err2:
-                    err_loc = err1 * err2 / (err1 - err2)
-                else:
-                    err_loc = err1
-                err_loc = max(err_loc, rndoff)
-                mx = m + 1
+                    if happy:
+                        err_loc = tiny
+                        mx = k_eff
+                    else:
+                        err1 = abs(beta * F[m, 0])
+                        err2 = abs(beta * F[m + 1, 0]) * avnorm
+                        if err1 > 10 * err2:
+                            err_loc = err2
+                        elif err1 > err2:
+                            err_loc = err1 * err2 / (err1 - err2)
+                        else:
+                            err_loc = err1
+                        err_loc = max(err_loc, rndoff)
+                        mx = m + 1
 
-            if err_loc <= delta * tau * tol:
-                break
-            stats['rejected_steps'] += 1
-            tau_new = gamma * tau * (tau * tol / err_loc) ** (1 / m)
-            if not np.isfinite(tau_new) or tau_new >= tau:
-                tau_new = tau / 2
-            tau = tau_new
-            if tau < 1e-14 * t_total:
-                raise ConvergenceError('expmv substep underflow; the '
-                                       'operator norm may be inaccurate')
+                    if err_loc <= delta * tau * tol:
+                        break
+                    stats['rejected_steps'] += 1
+                    tau_new = gamma * tau * (tau * tol / err_loc) ** (1 / m)
+                    if not np.isfinite(tau_new) or tau_new >= tau:
+                        tau_new = tau / 2
+                    tau = tau_new
+                    if tau < 1e-14 * t_total:
+                        raise ConvergenceError(
+                            'expmv substep underflow; the operator norm may '
+                            'be inaccurate')
 
-        coeffs = np.zeros(m + 1, dtype=np.complex128)
-        coeffs[:mx] = beta * F[:mx, 0]
-        cr = torch.as_tensor(coeffs.real, dtype=v.dtype, device=v.device)
-        ci = torch.as_tensor(coeffs.imag, dtype=v.dtype, device=v.device)
-        w = krylov.combine(V, cr, ci)
+            coeffs = np.zeros(m + 1, dtype=np.complex128)
+            coeffs[:mx] = beta * F[:mx, 0]
+            cr = torch.as_tensor(coeffs.real, dtype=v.dtype, device=v.device)
+            ci = torch.as_tensor(coeffs.imag, dtype=v.dtype, device=v.device)
+            w = krylov.combine(V, cr, ci)
 
-        t_now += tau
-        stats['substeps'] += 1
-        if not happy:
-            t_step = gamma * tau * (tau * tol / err_loc) ** (1 / m)
-            t_step = min(t_step, max_growth * tau)
+            t_now += tau
+            stats['substeps'] += 1
+            if not happy:
+                t_step = gamma * tau * (tau * tol / err_loc) ** (1 / m)
+                t_step = min(t_step, max_growth * tau)
 
-    return w
+        return w
 
 
 def _augmented_matrix(alpha, beta, k_eff, happy):

@@ -18,8 +18,11 @@ is the combine; they run in full precision (TF32 is off, see
 factorization is done, so a factorization costs one host sync.
 """
 
+from contextlib import contextmanager
+
 import torch
 
+from .. import tracing
 from ..ops import cvec
 from ..parallel import mesh, multihost
 
@@ -36,7 +39,8 @@ def check_workspace_fits(dim, ncv, device, dtype, context):
     dimension; each rank holds its share of the basis."""
     if device.type != 'cuda':
         return
-    free, _total = torch.cuda.mem_get_info(device)
+    with tracing.span('solver.workspace_check'):
+        free, _total = torch.cuda.mem_get_info(device)
     need = workspace_bytes(mesh.local_dim(dim), ncv,
                            torch.empty((), dtype=dtype).element_size())
     if need > 0.9 * free:
@@ -55,10 +59,12 @@ def gram(X, Y):
     With a process group up, the (p, 2, q, 2) block is summed over ranks in
     one device all-reduce."""
     p, q = X.shape[0], Y.shape[0]
-    G = (X.reshape(p * 2, X.shape[-1]) @ Y.reshape(q * 2, Y.shape[-1]).T
-         ).reshape(p, 2, q, 2)
-    multihost.allreduce_sum_(G)
-    return (G[:, 0, :, 0] + G[:, 1, :, 1], G[:, 0, :, 1] - G[:, 1, :, 0])
+    with tracing.span('krylov.gram'):
+        G = (X.reshape(p * 2, X.shape[-1]) @ Y.reshape(q * 2, Y.shape[-1]).T
+             ).reshape(p, 2, q, 2)
+        multihost.allreduce_sum_(G)
+        return (G[:, 0, :, 0] + G[:, 1, :, 1],
+                G[:, 0, :, 1] - G[:, 1, :, 0])
 
 
 def _basis_dots(V, w):
@@ -71,9 +77,10 @@ def _basis_dots(V, w):
 def combine(V, cr, ci):
     """sum_k (cr_k + i ci_k) V_k over the rows of V. Returns (2, dim)."""
     n = V.shape[0]
-    C = torch.stack([torch.stack([cr, -ci], dim=1),
-                     torch.stack([ci, cr], dim=1)]).reshape(2, n * 2)
-    return C @ V.reshape(n * 2, V.shape[-1])
+    with tracing.span('krylov.combine'):
+        C = torch.stack([torch.stack([cr, -ci], dim=1),
+                         torch.stack([ci, cr], dim=1)]).reshape(2, n * 2)
+        return C @ V.reshape(n * 2, V.shape[-1])
 
 
 def _orthogonalize(V, w):
@@ -84,7 +91,8 @@ def _orthogonalize(V, w):
 
 
 def norm(w):
-    return cvec.norm(w)
+    with tracing.span('krylov.norm'):
+        return cvec.norm(w)
 
 
 def _normalized(w):
@@ -102,21 +110,22 @@ def lanczos_restarted(matvec, V, n_locked, m):
     Returns (V, alpha, beta) with alpha/beta of shape (m,), only valid in
     [n_locked, m); beta[m-1] is the residual norm.
     """
-    alpha = torch.zeros(m, dtype=V.dtype, device=V.device)
-    beta = torch.zeros(m, dtype=V.dtype, device=V.device)
-    for j in range(n_locked, m):
-        w = matvec(V[j])
-        # two-pass CGS against the active basis {v_0..v_j}: the first pass
-        # extracts alpha_j (the <v_j|w> component is real for a Hermitian
-        # matvec), the second cleans up roundoff
-        active = V[:j + 1]
-        w, (re1, _) = _orthogonalize(active, w)
-        w, _ = _orthogonalize(active, w)
-        b_j = norm(w)
-        V[j + 1] = w / torch.where(b_j > 0, b_j, torch.ones_like(b_j))
-        alpha[j] = re1[j]
-        beta[j] = b_j
-    return V, alpha, beta
+    with tracing.span('solver.lanczos'):
+        alpha = torch.zeros(m, dtype=V.dtype, device=V.device)
+        beta = torch.zeros(m, dtype=V.dtype, device=V.device)
+        for j in range(n_locked, m):
+            w = matvec(V[j])
+            # two-pass CGS against the active basis {v_0..v_j}: the first
+            # pass extracts alpha_j (the <v_j|w> component is real for a
+            # Hermitian matvec), the second cleans up roundoff
+            active = V[:j + 1]
+            w, (re1, _) = _orthogonalize(active, w)
+            w, _ = _orthogonalize(active, w)
+            b_j = norm(w)
+            V[j + 1] = w / torch.where(b_j > 0, b_j, torch.ones_like(b_j))
+            alpha[j] = re1[j]
+            beta[j] = b_j
+        return V, alpha, beta
 
 
 def lanczos(matvec, v0, m):
@@ -139,7 +148,8 @@ def recombine_basis(V, C):
     """New basis rows Y_p = sum_k C[p, k] V[k] (real coefficients, e.g. the
     eigenvectors of the tridiagonal projection in a thick restart)."""
     n = V.shape[0]
-    return (C @ V.reshape(n, -1)).reshape(C.shape[0], *V.shape[1:])
+    with tracing.span('krylov.recombine'):
+        return (C @ V.reshape(n, -1)).reshape(C.shape[0], *V.shape[1:])
 
 
 def orthonormalize_against(V, w):
@@ -183,5 +193,20 @@ class KrylovOps:
 
 
 def host(t):
-    """A device tensor as a float64 numpy array (one device sync)."""
-    return t.to('cpu', torch.float64).numpy()
+    """A device tensor as a float64 numpy array: the solvers' one
+    device-to-host read (a device sync), counted in ``solver.syncs``."""
+    tracing.count('solver.syncs')
+    with tracing.span('solver.sync'):
+        return t.to('cpu', torch.float64).numpy()
+
+
+@contextmanager
+def counting_syncs(stats):
+    """Add the block's device-to-host reads (:func:`host`, the counter
+    ``solver.syncs``) to ``stats['host_syncs']``, also when it raises."""
+    before = tracing.counter('solver.syncs')
+    try:
+        yield
+    finally:
+        stats['host_syncs'] = (stats.get('host_syncs', 0)
+                               + tracing.counter('solver.syncs') - before)

@@ -33,6 +33,7 @@ import torch
 from dynamite_tpu_torch import config
 from dynamite_tpu_torch import models
 from dynamite_tpu_torch import subspaces
+from dynamite_tpu_torch import tracing
 from dynamite_tpu_torch.computations import eigsolve, evolve
 from dynamite_tpu_torch.ops.xor_apply import (xor_apply, xor_apply_reference,
                                               xor_apply_sharded,
@@ -103,10 +104,10 @@ def test_kernel_vs_plain_on_card(card, space, dtype, model):
     tables = H.get_mat().tables
     assert tables.use_diag == (model != 'few_diag')
     x = torch.from_numpy(_planes(tables.dim)).to(card, dtype)
-    before = xor_apply_sharded.launches
+    before = tracing.counter('xor.launches')
     y = xor_apply(x, tables)
     torch.cuda.synchronize()
-    assert xor_apply_sharded.launches == before + 1
+    assert tracing.counter('xor.launches') == before + 1
     want = xor_apply_reference(x, tables)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     err = (y - want).abs().max() / want.abs().max()
@@ -147,9 +148,9 @@ def test_dot_on_card_matches_cpu(card):
     psi = State(subspace=sub)
     psi.set_planes(_planes(sub.get_dimension(), seed=1))
     assert psi.data.is_cuda
-    before = xor_apply_sharded.launches
+    before = tracing.counter('xor.launches')
     got = H.dot(psi).to_numpy()
-    assert xor_apply_sharded.launches == before + 1
+    assert tracing.counter('xor.launches') == before + 1
     want = H.to_numpy() @ psi.to_numpy()
     assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
 
@@ -163,9 +164,9 @@ def test_evolve_and_eigsolve_on_card(card, space):
     psi = State(subspace=sub)
     psi.set_planes(v)
 
-    before = xor_apply_sharded.launches
+    before = tracing.counter('xor.launches')
     got = evolve(H, psi, t=1.0).to_numpy()
-    assert xor_apply_sharded.launches > before
+    assert tracing.counter('xor.launches') > before
     want = scipy.sparse.linalg.expm_multiply(-1j * H.to_numpy(),
                                              v[0] + 1j * v[1])
     assert np.linalg.norm(got - want) < 1e-6
@@ -197,7 +198,7 @@ def test_sharded_kernel_vs_plain_on_card(card, space, dtype, P):
     n = st.local_dim
     blocks = [x[:, b * n:(b + 1) * n].contiguous() for b in range(P)]
     tol = 1e-5 if dtype == torch.float32 else 1e-12
-    before = xor_apply_sharded.launches
+    before = tracing.counter('xor.launches')
     parts = []
     for me in range(P):
         srcs = [blocks[me ^ h] for h in st.hi_list]
@@ -206,7 +207,7 @@ def test_sharded_kernel_vs_plain_on_card(card, space, dtype, P):
         assert float((y - want).abs().max() / want.abs().max()) <= tol
         parts.append(y)
     torch.cuda.synchronize()
-    assert xor_apply_sharded.launches == before + P
+    assert tracing.counter('xor.launches') == before + P
     whole = xor_apply(x, tables)
     got = torch.cat(parts, dim=1)
     if same_tiles:
@@ -245,7 +246,8 @@ def test_blocks_smaller_than_a_tile_on_card(card, dtype):
 
 def test_diagonal_builds_once_per_layout(card):
     """The diagonal stream is built once per (operator, dtype, device,
-    layout) and counted in xor_diagonal.launches, apart from the matvec's
+    layout) and counted in the counter ``xor.diagonal_launches``, apart
+    from the matvec's
     one launch per apply; it equals its plain version."""
     from dynamite_tpu_torch.ops.xor_apply import (xor_diagonal,
                                                   xor_diagonal_reference)
@@ -253,12 +255,13 @@ def test_diagonal_builds_once_per_layout(card):
     H.add_subspace(_sub('full'))
     tables = H.get_mat().tables
     x = torch.from_numpy(_planes(tables.dim)).to(card, torch.float32)
-    builds, launches = xor_diagonal.launches, xor_apply_sharded.launches
+    builds = tracing.counter('xor.diagonal_launches')
+    launches = tracing.counter('xor.launches')
     for _ in range(3):
         xor_apply(x, tables)
-    assert xor_diagonal.launches == builds + 1
+    assert tracing.counter('xor.diagonal_launches') == builds + 1
     xor_apply(x.double(), tables)
-    assert xor_diagonal.launches == builds + 2
+    assert tracing.counter('xor.diagonal_launches') == builds + 2
     st = tables.for_layout(tables.nbits - 1)
     n = st.local_dim
     blocks = [x[:, :n].contiguous(), x[:, n:].contiguous()]
@@ -266,8 +269,8 @@ def test_diagonal_builds_once_per_layout(card):
         for me in range(2):
             xor_apply_sharded([blocks[me ^ h] for h in st.hi_list], st,
                               me * n)
-    assert xor_diagonal.launches == builds + 4
-    assert xor_apply_sharded.launches == launches + 8
+    assert tracing.counter('xor.diagonal_launches') == builds + 4
+    assert tracing.counter('xor.launches') == launches + 8
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         d = xor_diagonal(st, n, dtype, card)
         want = xor_diagonal_reference(st, n, dtype, card)
@@ -326,7 +329,7 @@ def _diagonal_on_shards(tables, dtype, card, worlds):
     for P in worlds:
         st = tables.for_layout(tables.nbits - (P.bit_length() - 1))
         n = st.local_dim
-        before = xor_diagonal.launches
+        before = tracing.counter('xor.diagonal_launches')
         parts = []
         for me in range(P):
             d = xor_diagonal(st, me * n, dtype, card)
@@ -336,7 +339,7 @@ def _diagonal_on_shards(tables, dtype, card, worlds):
                 want.abs().max())
             parts.append(d)
         torch.cuda.synchronize()
-        assert xor_diagonal.launches == before + P
+        assert tracing.counter('xor.diagonal_launches') == before + P
         assert torch.equal(torch.cat(parts, dim=1), whole)
 
 
@@ -392,10 +395,10 @@ def test_xparity_kernel_vs_plain_on_card(card, parent, dtype, sector):
     tables = H.get_mat().tables
     assert tables.dim == 1 << 12
     x = torch.from_numpy(_planes(tables.dim, seed=3)).to(card, dtype)
-    before = xor_apply_sharded.launches
+    before = tracing.counter('xor.launches')
     y = xor_apply(x, tables)
     torch.cuda.synchronize()
-    assert xor_apply_sharded.launches == before + 1
+    assert tracing.counter('xor.launches') == before + 1
     want = xor_apply_reference(x, tables)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert float((y - want).abs().max() / want.abs().max()) <= tol
@@ -409,8 +412,7 @@ def test_sector_engine_vs_plain_on_card(card, model, space, dtype):
     on-the-fly row sweep) and the numpy oracle: SpinConserve(12, 6),
     SpinConserve(13, 5) and XParity(SpinConserve(12, 6), '-');
     long_range has complex matrices."""
-    from dynamite_tpu_torch.ops.sector_apply import (sector_apply,
-                                                     sector_apply_reference)
+    from dynamite_tpu_torch.ops.sector_apply import sector_apply_reference
     sub = {'sc': lambda: subspaces.SpinConserve(12, 6),
            'sc_odd': lambda: subspaces.SpinConserve(13, 5),
            'xparity': lambda: subspaces.XParity(
@@ -421,9 +423,9 @@ def test_sector_engine_vs_plain_on_card(card, model, space, dtype):
     kernel = H.get_mat()
     assert kernel.sector_plan is not None
     x = torch.from_numpy(_planes(sub.get_dimension(), seed=4)).to(card, dtype)
-    before = sector_apply.applies
+    before = tracing.counter('sector.applies')
     y = kernel.apply(x)
-    assert sector_apply.applies == before + 1
+    assert tracing.counter('sector.applies') == before + 1
     want = sector_apply_reference(x, kernel.plan)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert float((y - want).abs().max() / want.abs().max()) <= tol
@@ -436,7 +438,6 @@ def test_sector_engine_vs_plain_on_card(card, model, space, dtype):
 
 @pytest.mark.parametrize('space', ['sc', 'xparity'])
 def test_sector_evolve_and_eigsolve_on_card(card, space):
-    from dynamite_tpu_torch.ops.sector_apply import sector_apply
     base = subspaces.SpinConserve(12, 6)
     sub = base if space == 'sc' else subspaces.XParity(base, '+')
     H = models.heisenberg(12)
@@ -444,9 +445,9 @@ def test_sector_evolve_and_eigsolve_on_card(card, space):
     v = _planes(sub.get_dimension(), seed=5)
     psi = State(subspace=sub)
     psi.set_planes(v)
-    before = sector_apply.applies
+    before = tracing.counter('sector.applies')
     got = evolve(H, psi, t=1.0).to_numpy()
-    assert sector_apply.applies > before
+    assert tracing.counter('sector.applies') > before
     want = scipy.sparse.linalg.expm_multiply(-1j * H.to_numpy(),
                                              v[0] + 1j * v[1])
     assert np.linalg.norm(got - want) < 1e-6
@@ -463,7 +464,6 @@ def test_xor_dense_vs_plain_on_card(card, space, dtype):
     on Full(12) and syk(11) (7,315 terms) on Parity(13) even, both of
     dimension 4096 and past the XOR kernel's shared-memory tables."""
     from dynamite_tpu_torch.ops.xor_apply import XorTables
-    from dynamite_tpu_torch.ops.xor_dense import xor_dense_apply
     sub = subspaces.Full(L=12) if space == 'full' else \
         subspaces.Parity('even', L=13)
     H = models.syk(12 if space == 'full' else 11)
@@ -471,9 +471,9 @@ def test_xor_dense_vs_plain_on_card(card, space, dtype):
     kernel = H.get_mat()
     assert kernel.xor_dense is not None and kernel.tables is None
     x = torch.from_numpy(_planes(sub.get_dimension(), seed=6)).to(card, dtype)
-    before = xor_dense_apply.applies
+    before = tracing.counter('xor_dense.applies')
     y = kernel.apply(x)
-    assert xor_dense_apply.applies == before + 1
+    assert tracing.counter('xor_dense.applies') == before + 1
     want = xor_apply_reference(x, XorTables(kernel.plan, sub))
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert float((y - want).abs().max() / want.abs().max()) <= tol
@@ -539,9 +539,9 @@ def test_minres_on_card_matches_cpu(card):
                           stats=stats)(torch.tensor(b, device=device))
         return x.cpu().numpy(), stats
 
-    before = xor_apply_sharded.launches
+    before = tracing.counter('xor.launches')
     got, stats = solve(card)
-    assert xor_apply_sharded.launches - before == stats['iterations'] > 0
+    assert tracing.counter('xor.launches') - before == stats['iterations'] > 0
     want, _ = solve('cpu')
     assert np.max(np.abs(got - want)) <= 1e-10 * np.max(np.abs(want))
 
@@ -556,10 +556,10 @@ def test_target_eigsolve_on_card_matches_cpu(card):
     exact = np.sort(scipy.sparse.linalg.eigsh(
         H.to_numpy(), k=6, which='SA', return_eigenvectors=False))
     target = float(0.7 * exact[3] + 0.3 * exact[4])
-    before = xor_apply_sharded.launches
+    before = tracing.counter('xor.launches')
     got = np.sort(eigsolve(H, nev=2, target=target))
     stats = computations.last_solve_stats
-    assert xor_apply_sharded.launches - before >= stats['matvecs'] > 0
+    assert tracing.counter('xor.launches') - before >= stats['matvecs'] > 0
     want = np.sort(_on_cpu(lambda: eigsolve(H, nev=2, target=target)))
     assert np.allclose(got, want, rtol=1e-10, atol=0)
     nearest = np.sort(exact[np.argsort(np.abs(exact - target))[:2]])
@@ -611,10 +611,10 @@ def test_ell_kernel_vs_plain_on_card(card, case, dtype):
     assert (t.fi is not None) is (case == 'rect')
     x = torch.as_tensor(_planes(right.get_dimension(), seed=8), dtype=dtype,
                         device=card)
-    before = ell.ell_apply.launches
+    before = tracing.counter('ell.launches')
     y = ell.ell_apply(x, t)
     torch.cuda.synchronize()
-    assert ell.ell_apply.launches == before + 1
+    assert tracing.counter('ell.launches') == before + 1
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert y.shape == (2, left.get_dimension()) and y.dtype == dtype
     for y_plain in (ell.sell_apply_reference(x, t),
@@ -624,7 +624,7 @@ def test_ell_kernel_vs_plain_on_card(card, case, dtype):
             tol * float(y_plain.abs().max())
     # the operator's apply launches the same kernel, once
     y2 = k.apply(x)
-    assert ell.ell_apply.launches == before + 2
+    assert tracing.counter('ell.launches') == before + 2
     assert torch.equal(y2, y)
 
 
@@ -713,7 +713,6 @@ def test_ell_evolve_and_eigsolve_on_card(card):
     """Auto(localized(12)) at half filling through the ELL kernel, against
     the same calls on SpinConserve(12, 6) (the same basis order) and
     eigvalsh."""
-    from dynamite_tpu_torch.ops.ell import ell_apply
     H = models.localized(12)
     auto = subspaces.Auto(H, 'U' * 6 + 'D' * 6)
     H.add_subspace(auto)
@@ -723,9 +722,9 @@ def test_ell_evolve_and_eigsolve_on_card(card):
     psi, psi_sc = State(subspace=auto), State(subspace=H_sc.subspace)
     psi.set_planes(v)
     psi_sc.set_planes(v)
-    before = ell_apply.launches
+    before = tracing.counter('ell.launches')
     got = evolve(H, psi, t=1.0).to_numpy()
-    assert ell_apply.launches > before
+    assert tracing.counter('ell.launches') > before
     want = evolve(H_sc, psi_sc, t=1.0).to_numpy()
     assert np.linalg.norm(got - want) < 1e-10
     evals = eigsolve(H, nev=2)
@@ -828,7 +827,6 @@ def test_sharded_ell_on_card(card, world, dtype):
     gives its rows bitwise what the one-device kernel gives; the pads are
     0; the ranks' nonzeros add up to the one-device count; each launch is
     counted."""
-    from dynamite_tpu_torch.ops.ell import ell_apply
     H = models.localized(12)
     sub = subspaces.Auto(H, 'U' * 6 + 'D' * 6)
     one, over = _virtual(H, sub, world)
@@ -837,9 +835,9 @@ def test_sharded_ell_on_card(card, world, dtype):
     v = _planes(dim, seed=world)
     x = _padded_on(v, world, dtype, card)
     y1 = one.apply(x[:, :dim].contiguous())
-    before = ell_apply.launches
+    before = tracing.counter('ell.launches')
     y = over.apply(x)
-    assert ell_apply.launches == before + world
+    assert tracing.counter('ell.launches') == before + world
     assert y.is_cuda and torch.equal(y[:, :dim], y1)
     assert not y[:, dim:].any()
     nnz = sum(over.sharded.tables[r].on(dtype, y.device).nnz
@@ -917,7 +915,6 @@ def test_sharded_xor_dense_on_card(card, space, dtype, world):
     on the card against the one-device engine on the card, within 1e-5 /
     1e-12 relative to max|y|: one call a rank, the ranks sharing one set
     of channel matrices, the split within a rank's bits."""
-    from dynamite_tpu_torch.ops.xor_dense import xor_dense_apply
     H, sub = _syk_case(space)
     one, over = _virtual(H, sub, world)
     assert (one.engine, over.engine) == ('xor_dense', 'xor_dense')
@@ -925,9 +922,9 @@ def test_sharded_xor_dense_on_card(card, space, dtype, world):
     assert t.La <= 12 - (world.bit_length() - 1)
     x = torch.from_numpy(_planes(4096, seed=world)).to(card, dtype)
     y1 = one.apply(x)
-    before = xor_dense_apply.applies
+    before = tracing.counter('xor_dense.applies')
     y = over.apply(x)
-    assert xor_dense_apply.applies == before + world
+    assert tracing.counter('xor_dense.applies') == before + world
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert y.is_cuda
     assert float((y - y1).abs().max() / y1.abs().max()) <= tol
@@ -945,7 +942,6 @@ def test_sharded_xparity_on_card(card, parent, dtype, world):
     ranks through the kernel's sharded route (one launch a rank, the sign
     on the global row) against the one-device kernel, within 1e-5 / 1e-12
     relative to max|y|."""
-    from dynamite_tpu_torch.ops.xor_apply import xor_apply_sharded
     H = models.localized(12)
     H.allow_projection = True
     sub = subspaces.XParity(_sub(parent, L=12), '-')
@@ -954,9 +950,9 @@ def test_sharded_xparity_on_card(card, parent, dtype, world):
     dim = sub.get_dimension()
     x = torch.from_numpy(_planes(dim, seed=world)).to(card, dtype)
     y1 = one.apply(x)
-    before = xor_apply_sharded.launches
+    before = tracing.counter('xor.launches')
     y = over.apply(x)
-    assert xor_apply_sharded.launches == before + world
+    assert tracing.counter('xor.launches') == before + world
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert float((y - y1).abs().max() / y1.abs().max()) <= tol
 
@@ -1034,12 +1030,12 @@ def test_xor_route_and_files_on_nccl(card, tmp_path):
 SWITCH_RUNNER = """\
 import contextlib, io, json, sys
 from dynamite_tpu_torch import switch
-from dynamite_tpu_torch.ops.xor_apply import xor_apply_sharded
+from dynamite_tpu_torch import tracing
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     switch.run_script(sys.argv[2], sys.argv[3:], device=sys.argv[1] or None)
 print(json.dumps({'lines': buf.getvalue().splitlines(),
-                  'launches': xor_apply_sharded.launches}))
+                  'launches': tracing.counter('xor.launches')}))
 """
 
 

@@ -40,6 +40,7 @@ from dynamite_tpu_torch import config
 from dynamite_tpu_torch import models
 from dynamite_tpu_torch import operators as ops
 from dynamite_tpu_torch import subspaces
+from dynamite_tpu_torch import tracing
 from dynamite_tpu_torch.computations import eigsolve, evolve
 from dynamite_tpu_torch.ops import ell
 from dynamite_tpu_torch.ops.apply import _Plan, general_sweep
@@ -249,10 +250,10 @@ def test_cpu_wrapper_counts_no_launch():
     plan = _plans('auto')[0]
     tables = ell.pack_tables(*ell.build_tables(plan, torch.float64, 'cpu'),
                              plan.dim_right)
-    before = ell.ell_apply.launches
+    before = tracing.counter('ell.launches')
     ell.ell_apply(torch.zeros((2, plan.dim_right), dtype=torch.float64),
                   tables)
-    assert ell.ell_apply.launches == before
+    assert tracing.counter('ell.launches') == before
 
 
 @pytest.mark.parametrize('route', ['ell', 'over_budget', 'use_ell_off'])
@@ -274,9 +275,9 @@ def test_dispatch(route, monkeypatch):
     assert kernel.engine == ('ell' if route == 'ell' else 'sweep')
     assert (kernel.ell_tables is None) is (route != 'ell')
     vec = _vec(sub.get_dimension(), seed=3)
-    before = general_sweep.applies
+    before = tracing.counter('sweep.applies')
     y = kernel.apply(torch.as_tensor(np.stack([vec.real, vec.imag])))
-    assert general_sweep.applies == before + (route != 'ell')
+    assert tracing.counter('sweep.applies') == before + (route != 'ell')
     want = H.to_numpy() @ vec
     assert _rel(y[0].numpy() + 1j * y[1].numpy(), want) <= 1e-12
     # the conservation gate without the build's flag: the device reduction

@@ -23,6 +23,7 @@ from dynamite_tpu import subspaces as ref_subspaces
 from dynamite_tpu.solvers.minres import minres_solver as ref_minres
 
 from dynamite_tpu_torch import config, models, subspaces
+from dynamite_tpu_torch import tracing
 from dynamite_tpu_torch.solvers.minres import minres_solver
 
 # One torch thread per xdist worker (ROADMAP.md queue 3).
@@ -147,10 +148,10 @@ def test_stops_at_the_reference_iteration(maxiter):
 
 def test_counts_iterations_on_the_function():
     kernel, _ref_kernel, dense = _case('ising', 'full')
-    before = minres_solver.iterations
+    before = tracing.counter('minres.iterations')
     minres_solver(kernel.apply, shift=0.1, maxiter=5, rtol=0.0)(
         torch.tensor(_rhs(dense.shape[0])))
-    assert minres_solver.iterations == before + 5
+    assert tracing.counter('minres.iterations') == before + 5
 
 
 def test_breakdown_on_an_eigenvector():

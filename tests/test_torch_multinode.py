@@ -601,8 +601,8 @@ def _rank_main(case, launcher, shared, device, args):
     elif case == 'main':
         from scipy.sparse.linalg import expm_multiply
         from dynamite_tpu_torch.models import heisenberg, localized
+        from dynamite_tpu_torch import tracing
         from dynamite_tpu_torch.operators import Operator
-        from dynamite_tpu_torch.ops import apply
         from dynamite_tpu_torch.states import State
         from dynamite_tpu_torch.subspaces import Full, SpinConserve
 
@@ -612,11 +612,11 @@ def _rank_main(case, launcher, shared, device, args):
 
         H, sub = heisenberg(L), Full(L=L)
         H.add_subspace(sub)
-        apply.exchange.exchanges = 0
+        pairs = tracing.counter('transport.exchange.pairs')
         rec['full_evals'] = [float(e) for e in H.eigsolve(nev=2)]
         tables = H.get_mat().tables.for_layout(L - 2)
         rec['partners'] = [me ^ m for m in tables.hi_list if m]
-        rec['exchanges'] = apply.exchange.exchanges
+        rec['exchanges'] = tracing.counter('transport.exchange.pairs') - pairs
         s0 = State(state='UD' * (L // 2), subspace=sub)
         config.profile_dir = os.path.join(shared, 'profiles')
         out = H.evolve(s0, 0.3)

@@ -1,9 +1,9 @@
 """
 ``config.profile_dir`` on the port: ``evolve`` and ``eigsolve`` wrapped in a
 torch.profiler trace, one Chrome/TensorBoard trace file per call (the JAX
-package's ``_maybe_profile``, through torch.profiler), on the CPU. The
-card's part of the trace (the kernel's name in it) is checked by
-``chip_smoke.py``'s phase ``examples``.
+package's ``_maybe_profile``, through torch.profiler), on the CPU, with
+the port's spans in it. The card's part of the trace (the kernel's name in
+it) is checked by ``chip_smoke.py``'s phase ``examples``.
 """
 
 import json
@@ -72,3 +72,19 @@ def test_results_bitwise_equal(tmp_path):
     traced = _solves()
     assert torch.equal(plain[0], traced[0])
     assert np.array_equal(plain[1], traced[1])
+
+
+def test_trace_names_the_ports_spans(tmp_path):
+    """The evolve's trace holds the port's spans (``dynamite.solve.evolve``
+    around the solve, ``dynamite.apply`` a matvec), recorded with spans on
+    only while the profiler ran."""
+    from dynamite_tpu_torch import tracing
+    assert not tracing.enabled()
+    config.profile_dir = str(tmp_path / 'traces')
+    _solves()
+    assert not tracing.enabled()
+    name, = [n for n in os.listdir(tmp_path / 'traces')
+             if n.startswith('evolve_rank0.')]
+    with open(tmp_path / 'traces' / name) as f:
+        names = {e.get('name') for e in json.load(f)['traceEvents']}
+    assert {'dynamite.solve.evolve', 'dynamite.apply'} <= names

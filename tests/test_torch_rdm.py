@@ -28,6 +28,7 @@ from dynamite_tpu.states import State as RefState
 
 from dynamite_tpu_torch import config
 from dynamite_tpu_torch import subspaces
+from dynamite_tpu_torch import tracing
 from dynamite_tpu_torch.computations import (dm_entanglement_entropy,
                                              dm_renyi_entropy,
                                              entanglement_entropy,
@@ -157,10 +158,10 @@ def test_spinconserve_route_builds_no_full_vector(monkeypatch):
     s, _s_ref, full = _states('sc3', seed=14)
     rdm.clear_index_cache()
     assert rdm.index_cache_bytes() == 0
-    builds = rdm.spinconserve_index.builds
+    builds = tracing.counter('rdm.spinconserve_index_builds')
     for _ in range(2):
         got = reduced_density_matrix(s, (0, 1, 2))
-    assert rdm.spinconserve_index.builds == builds + 1
+    assert tracing.counter('rdm.spinconserve_index_builds') == builds + 1
     assert rdm.index_cache_bytes() == 2 * s.subspace.get_dimension() * 8
     assert _err(got, rdm.rdm_from_full_vector(full, (0, 1, 2), L)) <= 1e-12
     blocks, index = rdm.spinconserve_index(s.subspace, (0, 1, 2),

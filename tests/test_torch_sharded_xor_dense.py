@@ -45,6 +45,7 @@ from dynamite_tpu.solvers.expmv import expmv as ref_expmv
 from dynamite_tpu_torch import config
 from dynamite_tpu_torch import models
 from dynamite_tpu_torch import subspaces
+from dynamite_tpu_torch import tracing
 from dynamite_tpu_torch.ops import apply as port_apply
 from dynamite_tpu_torch.ops import xor_dense
 from dynamite_tpu_torch.ops.apply import OperatorKernel, VirtualTransport
@@ -172,11 +173,12 @@ def test_syk_apply_over_ranks(case, world):
     one = H.get_mat()
     assert one.engine == 'xor_dense'
     x = _planes(4096, seed=3)
-    calls, swaps = (xor_dense.xor_dense_apply.applies,
-                    port_apply.exchange.exchanges)
+    calls, swaps = (tracing.counter('xor_dense.applies'),
+                    tracing.counter('transport.exchange.pairs'))
     got = k.apply(torch.as_tensor(x)).numpy()
-    assert xor_dense.xor_dense_apply.applies - calls == world
-    assert port_apply.exchange.exchanges - swaps == world * (len(his) - 1)
+    assert tracing.counter('xor_dense.applies') - calls == world
+    assert (tracing.counter('transport.exchange.pairs') - swaps
+            == world * (len(his) - 1))
     assert _rel(got, one.apply(torch.as_tensor(x)).numpy()) <= 1e-12
     want, want_ref = _syk_refs(case, H, x)
     assert _rel(got, want_ref) <= 1e-12
@@ -283,12 +285,12 @@ def test_syk_eigsolve_over_ranks(monkeypatch):
     k = _over(H, sub, 4)
     assert k.engine == 'xor_dense'
     v0 = _planes(1024, seed=7)
-    calls = xor_dense.xor_dense_apply.applies
+    calls = tracing.counter('xor_dense.applies')
     stats = {}
     evals, _S, _V = eigsolve_trlanczos(k.krylov_ops(20), 1024,
                                        torch.float64, torch.device('cpu'),
                                        nev=1, tol=1e-12, v0=v0, stats=stats)
-    assert xor_dense.xor_dense_apply.applies - calls >= 4 * stats['matvecs']
+    assert tracing.counter('xor_dense.applies') - calls >= 4 * stats['matvecs']
     want = np.linalg.eigvalsh(H.to_numpy().toarray())[0]
     assert abs(evals[0] - want) <= 1e-10 * abs(want)
     one = H.eigsolve(nev=1, tol=1e-12)[0]

@@ -23,9 +23,9 @@ from dynamite_tpu.ops.pallas_apply import build_pallas_apply
 from dynamite_tpu_torch import config
 from dynamite_tpu_torch import models
 from dynamite_tpu_torch import subspaces
+from dynamite_tpu_torch import tracing
 from dynamite_tpu_torch.ops import xor_apply as port_xor
-from dynamite_tpu_torch.ops.xor_apply import (xor_apply, xor_apply_reference,
-                                              xor_apply_sharded)
+from dynamite_tpu_torch.ops.xor_apply import xor_apply, xor_apply_reference
 from dynamite_tpu_torch.states import State
 
 # One torch thread per xdist worker. torch on every core in several workers
@@ -168,8 +168,8 @@ def test_cpu_wrapper_counts_no_launch():
     H = models.ising(L)
     H.add_subspace(subspaces.Full(L=L))
     tables = H.get_mat().tables
-    before = xor_apply_sharded.launches
+    before = tracing.counter('xor.launches')
     x = torch.from_numpy(_planes(tables.dim, np.float64))
     y = xor_apply(x, tables)
-    assert xor_apply_sharded.launches == before
+    assert tracing.counter('xor.launches') == before
     assert torch.equal(y, xor_apply_reference(x, tables))

@@ -40,12 +40,13 @@ from dynamite_tpu_torch import computations
 from dynamite_tpu_torch import config
 from dynamite_tpu_torch import models
 from dynamite_tpu_torch import subspaces
+from dynamite_tpu_torch import tracing
 from dynamite_tpu_torch.operators import Operator
 from dynamite_tpu_torch.ops import xor_apply as port_xor
 from dynamite_tpu_torch.ops.xor_apply import (
     COMPLEX, DIAG_PRECOMPUTE_MIN_TERMS, DIAG_TILE_BITS, MIXED, DiagonalPlan,
-    tile_shape, xor_apply_reference, xor_apply_sharded,
-    xor_apply_sharded_reference, xor_diagonal)
+    tile_shape, xor_apply_reference, xor_apply_sharded_reference,
+    xor_diagonal)
 from dynamite_tpu_torch.utils.bitwise import parity
 
 # One torch thread per xdist worker (ROADMAP.md queue 3).
@@ -481,14 +482,14 @@ def test_cpu_diagonal_counts_no_launch():
     H.add_subspace(subspaces.Full(L=L))
     tables = H.get_mat().tables
     assert tables.use_diag and tables.has_imag_diag is False
-    before = xor_diagonal.launches
+    before = tracing.counter('xor.diagonal_launches')
     d = xor_diagonal(tables.for_layout(tables.nbits), 0, torch.float64, 'cpu')
-    assert xor_diagonal.launches == before
+    assert tracing.counter('xor.diagonal_launches') == before
     assert d.shape == (1, tables.dim)
     x = torch.from_numpy(_planes(tables.dim, np.float64))
-    before = xor_apply_sharded.launches
+    before = tracing.counter('xor.launches')
     port_xor.xor_apply(x, tables)
-    assert xor_apply_sharded.launches == before
+    assert tracing.counter('xor.launches') == before
 
 
 @pytest.mark.parametrize('local_bits,itemsize,want', [
