@@ -30,9 +30,13 @@ computed with torch ops over the device index map and stays on the device.
 channel accumulated in place into the output sector's (2, nb, na) view of
 y; a matrix that several channels share is one tensor. (The JAX package
 batches the channels that share a matrix into one product; on an H100 that
-costs a concatenation and an add per channel more, and the apply at L=24
-is bound by its launches, so each channel runs its own product.) TF32
-stays off (``config``), so float32 products run in full float32.
+costs a concatenation and an add per channel more, so each channel runs
+its own product.) On a CUDA device that fixed sequence of ~200 launches
+(SpinConserve(24, 12)) costs the host about three times what it costs the
+card, so :func:`sector_apply` captures it once per table set, dtype and
+device as a CUDA graph and replays it: the host enqueues a copy, one graph
+launch and a clone an apply. TF32 stays off (``config``), so float32
+products run in full float32.
 
 :func:`sector_apply_reference` is the engine's plain version: the row-wise
 sweep that ranks each row's partners on the fly (the JAX package's general
@@ -44,6 +48,8 @@ the XParity representatives — participate).
 """
 
 import copy
+import gc
+import weakref
 
 import numpy as np
 import torch
@@ -616,7 +622,10 @@ class SectorTables:
     * ``row_channels`` — [(si, so, ca, Nr, Ni)];
 
     with si, so indices into ``blocks``. Arrays stay the plan's numpy arrays
-    until :meth:`on` copies them to a (dtype, device), once each."""
+    until :meth:`on` copies them to a (dtype, device), once each.
+    ``graphs`` holds :func:`sector_apply`'s CUDA graph of these channels
+    per (dtype, device), with its staging buffers; a copy
+    (``copy.copy``) starts with none."""
 
     def __init__(self, sp):
         self.plan = sp
@@ -629,6 +638,16 @@ class SectorTables:
         self.row_channels = [(sp.sec_index[si], sp.sec_index[so], ca, nr, ni)
                              for si, so, ca, nr, ni in sp.row_channels]
         self._on = {}
+        self.graphs = {}
+
+    def __copy__(self):
+        """A shallow copy with no graph: a graph replays the channels it
+        was captured from, so a copy whose channels are then changed
+        captures its own."""
+        out = object.__new__(type(self))
+        out.__dict__.update(self.__dict__)
+        out.graphs = {}
+        return out
 
     @property
     def n_matmuls(self):
@@ -686,24 +705,54 @@ class SectorTables:
 
 def sector_apply(x, tables):
     """y = H x on (2, dim) planes by the sector engine of
-    :class:`SectorTables`, as torch ops on x's device and in x's dtype.
+    :class:`SectorTables`, on x's device and in x's dtype, as a new tensor.
+
+    The tables are uploaded first (:meth:`SectorTables.on`). On a CPU
+    tensor, or while the current CUDA stream is capturing a graph of its
+    own, the channel loop (:func:`_sector_apply_eager`) runs as torch ops.
+    Otherwise the loop is captured once per table set, dtype and device as
+    a CUDA graph (:func:`_capture`) and replayed: x is copied into the
+    graph's static input, the graph launched, and its static output cloned,
+    so no result aliases a buffer that the next apply overwrites. The
+    replay runs the same kernels in the same order, so its y is bitwise
+    the loop's. Counts one call in ``sector.applies`` (:mod:`..tracing`),
+    each capture in ``sector.graph_captures`` and each replay in
+    ``sector.graph_replays``; it launches no kernel of its own (the
+    products are cuBLAS's)."""
+    tables.on(x.dtype, x.device)
+    tracing.count('sector.applies')
+    if x.device.type != 'cuda' or torch.cuda.is_current_stream_capturing():
+        y = x.new_empty(x.shape)
+        _sector_apply_eager(x, tables, y)
+        return y
+    key = (x.dtype, x.device)
+    if key not in tables.graphs:
+        tables.graphs[key] = _capture(x, tables)
+    graph, staging = tables.graphs[key]
+    staging.x.copy_(x)
+    graph.replay()
+    tracing.count('sector.graph_replays')
+    return staging.y.clone()
+
+
+def _sector_apply_eager(x, tables, y):
+    """The channel loop: y = H x written into ``y`` (contiguous (2, dim)
+    planes like x) by torch ops.
 
     y starts as D ⊙ x. Each column channel then adds (X_si[bidx] ⊙ W) @ M^T
     (the gather by bidx where the channel has one, the row scale W folded
     into the gathered rows) in place into its output sector's (2, nb, na)
     view of y; each row channel adds N @ (X_si ⊙ ca) the same way. A
     complex matrix takes one product for its real part over both planes
-    and one for each plane of its imaginary part. Counts one call in
-    ``sector.applies`` (:mod:`..tracing`); it launches no kernel of its own
-    (the products are cuBLAS's)."""
+    and one for each plane of its imaginary part."""
     col_channels, row_channels, diag = tables.on(x.dtype, x.device)
     blocks = tables.blocks
     xs = [x[:, o:o + nb * na].view(2, nb, na) for o, nb, na in blocks]
     if diag is None:
-        y = torch.zeros_like(x)
+        y.zero_()
     else:
         Dr, Di = diag
-        y = x * Dr
+        torch.mul(x, Dr, out=y)
         if Di is not None:
             y[0].addcmul_(Di, x[1], value=-1)
             y[1].addcmul_(Di, x[0])
@@ -724,8 +773,72 @@ def sector_apply(x, tables):
         if Ni is not None:
             ys[so][0].addmm_(Ni, src[1], alpha=-1)
             ys[so][1].addmm_(Ni, src[0])
-    tracing.count('sector.applies')
-    return y
+
+
+class _Staging:
+    """The static input ``x`` and output ``y`` of the engine's graphs for
+    one (shape, dtype, device), shared by the graphs of every table set of
+    that kind."""
+
+    __slots__ = ('x', 'y', '__weakref__')
+
+    def __init__(self, like):
+        self.x = torch.zeros_like(like, memory_format=torch.contiguous_format)
+        self.y = torch.empty_like(self.x)
+
+
+# (shape, dtype, device) -> _Staging. The graphs that use a pair hold it,
+# and it goes with the last of them, so however many realizations are
+# alive (they linger in reference cycles until Python's collector runs),
+# they share one input and one output
+_staging = weakref.WeakValueDictionary()
+# device -> (capture stream, the engine's graphs alive there). The live
+# graphs keep their intermediates in one memory pool: they replay one at a
+# time on a stream, and none leaves its output there, so each may reuse
+# what the others' intermediates used. A capture takes the pool of any
+# live graph, and starts a new one when none is left (a pool cannot be
+# taken again once its last graph is gone)
+_capture_state = {}
+
+
+def _capture(x, tables):
+    """The eager loop of ``tables`` at x's shape, dtype and device captured
+    as a CUDA graph over that kind's :class:`_Staging`, with (graph,
+    staging) returned. The loop runs once on the capture stream first, so
+    its kernels are loaded and cuBLAS has its workspace for that stream
+    before the capture. Python's collector is held off during the capture:
+    it could free another table set's graph there."""
+    device = x.device
+    if device not in _capture_state:
+        _capture_state[device] = (torch.cuda.Stream(device),
+                                  weakref.WeakSet())
+    stream, live = _capture_state[device]
+    donor = next(iter(live), None)
+    pool = None if donor is None else donor.pool()
+    key = (tuple(x.shape), x.dtype, device)
+    staging = _staging.get(key)
+    if staging is None:
+        staging = _Staging(x)
+        _staging[key] = staging
+    graph = torch.cuda.CUDAGraph()
+    collecting = gc.isenabled()
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        _sector_apply_eager(staging.x, tables, staging.y)
+        gc.disable()
+        try:
+            graph.capture_begin(pool=pool)
+            try:
+                _sector_apply_eager(staging.x, tables, staging.y)
+            finally:
+                graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    live.add(graph)
+    tracing.count('sector.graph_captures')
+    return graph, staging
 
 
 def sector_apply_reference(x, plan):

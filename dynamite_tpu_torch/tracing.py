@@ -47,8 +47,11 @@ The spans, at the boundaries of the port's layers:
 The counters: ``apply.calls``, ``build.kernels``, ``build.uploads``,
 ``solver.syncs`` (device-to-host reads of the solvers), ``minres.iterations``;
 the engines' ``xor.launches``, ``xor.diagonal_launches``, ``ell.launches``,
-``sector.applies``, ``sector.ring_applies``, ``xor_dense.applies``,
-``sweep.applies``, ``rdm.spinconserve_index_builds``; and
+``sector.applies``, ``sector.graph_captures`` and ``sector.graph_replays``
+(the sector engine's CUDA graphs: ``graph_replays / applies`` is the share
+of its applies that replayed one), ``sector.ring_applies``,
+``xor_dense.applies``, ``sweep.applies``, ``rdm.spinconserve_index_builds``;
+and
 ``transport.<collective>.calls`` with, where data moves,
 ``transport.<collective>.bytes`` (the bytes this rank sends; an all-gather
 counts those it receives), ``transport.exchange.pairs``.

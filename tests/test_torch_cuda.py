@@ -2,7 +2,8 @@
 The port on a CUDA device: the hand-written XOR kernel against its plain
 PyTorch version on both routes (one device, and P virtual shards of one
 vector) and on XParity spaces, the sector and XOR-dense engines against
-their plain versions, Operator.dot / evolve / eigsolve through them, the
+their plain versions, the sector engine's CUDA graph bitwise against its
+channel loop, Operator.dot / evolve / eigsolve through them, the
 RDM's device route and the entropy on the card against the host routes,
 the MINRES inner solve and eigsolve(target=) against the same calls on the
 CPU, the ELL kernel (``csrc/ell_apply.cu``) over the packed tables against
@@ -404,15 +405,10 @@ def test_xparity_kernel_vs_plain_on_card(card, parent, dtype, sector):
     assert float((y - want).abs().max() / want.abs().max()) <= tol
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('space', ['sc', 'sc_odd', 'xparity'])
-@pytest.mark.parametrize('model', ['heisenberg', 'long_range'])
-def test_sector_engine_vs_plain_on_card(card, model, space, dtype):
-    """The sector engine on the card against its plain version (the
-    on-the-fly row sweep) and the numpy oracle: SpinConserve(12, 6),
-    SpinConserve(13, 5) and XParity(SpinConserve(12, 6), '-');
-    long_range has complex matrices."""
-    from dynamite_tpu_torch.ops.sector_apply import sector_apply_reference
+def _sector_operator(model, space):
+    """(H, subspace, kernel) of a sector-engine case: SpinConserve(12, 6)
+    ('sc'), SpinConserve(13, 5) ('sc_odd') or XParity(SpinConserve(12, 6),
+    '-') ('xparity')."""
     sub = {'sc': lambda: subspaces.SpinConserve(12, 6),
            'sc_odd': lambda: subspaces.SpinConserve(13, 5),
            'xparity': lambda: subspaces.XParity(
@@ -422,6 +418,31 @@ def test_sector_engine_vs_plain_on_card(card, model, space, dtype):
     H.add_subspace(sub)
     kernel = H.get_mat()
     assert kernel.sector_plan is not None
+    return H, sub, kernel
+
+
+def _graph_counts():
+    return (tracing.counter('sector.graph_captures'),
+            tracing.counter('sector.graph_replays'))
+
+
+def _sector_eager(x, tables):
+    from dynamite_tpu_torch.ops.sector_apply import _sector_apply_eager
+    y = torch.empty_like(x)
+    _sector_apply_eager(x, tables, y)
+    return y
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('space', ['sc', 'sc_odd', 'xparity'])
+@pytest.mark.parametrize('model', ['heisenberg', 'long_range'])
+def test_sector_engine_vs_plain_on_card(card, model, space, dtype):
+    """The sector engine on the card against its plain version (the
+    on-the-fly row sweep) and the numpy oracle: SpinConserve(12, 6),
+    SpinConserve(13, 5) and XParity(SpinConserve(12, 6), '-');
+    long_range has complex matrices."""
+    from dynamite_tpu_torch.ops.sector_apply import sector_apply_reference
+    H, sub, kernel = _sector_operator(model, space)
     x = torch.from_numpy(_planes(sub.get_dimension(), seed=4)).to(card, dtype)
     before = tracing.counter('sector.applies')
     y = kernel.apply(x)
@@ -434,6 +455,104 @@ def test_sector_engine_vs_plain_on_card(card, model, space, dtype):
     got = y.double().cpu().numpy()
     assert np.max(np.abs(got[0] + 1j * got[1] - oracle)) <= \
         tol * np.max(np.abs(oracle))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('space', ['sc', 'sc_odd', 'xparity'])
+@pytest.mark.parametrize('model', ['heisenberg', 'long_range'])
+def test_sector_graph_vs_eager_on_card(card, model, space, dtype):
+    """The sector engine's CUDA graph: captured once at a table set's first
+    apply and replayed at every apply, its y bitwise the channel loop's,
+    and each result a tensor of its own (the second apply leaves the
+    first's result as it was)."""
+    from dynamite_tpu_torch.ops.sector_apply import sector_apply
+    _H, sub, kernel = _sector_operator(model, space)
+    tables = kernel.sector_tables
+    xs = [torch.from_numpy(_planes(sub.get_dimension(), seed=s)).to(
+        card, dtype) for s in (6, 7)]
+    captures, replays = _graph_counts()
+    y1 = sector_apply(xs[0], tables)
+    assert _graph_counts() == (captures + 1, replays + 1)
+    kept = y1.clone()
+    y2 = sector_apply(xs[1], tables)
+    assert _graph_counts() == (captures + 1, replays + 2)
+    assert y1.data_ptr() != y2.data_ptr()
+    assert torch.equal(y1, kept)
+    assert torch.equal(y1, _sector_eager(xs[0], tables))
+    assert torch.equal(y2, _sector_eager(xs[1], tables))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('space', ['sc', 'sc_odd', 'xparity'])
+def test_sector_graphs_of_two_table_sets_on_card(card, space, dtype):
+    """Two table sets on one space, heisenberg (A) and long_range (B),
+    share the graphs' staging buffers and memory pool: applied A, B, A,
+    each gives its own channel loop's y bitwise, with one capture a table
+    set."""
+    from dynamite_tpu_torch.ops.sector_apply import sector_apply
+    _H, sub, kernel_a = _sector_operator('heisenberg', space)
+    _H, _sub, kernel_b = _sector_operator('long_range', space)
+    x = torch.from_numpy(_planes(sub.get_dimension(), seed=8)).to(card,
+                                                                   dtype)
+    captures, replays = _graph_counts()
+    got = [sector_apply(x, k.sector_tables)
+           for k in (kernel_a, kernel_b, kernel_a)]
+    assert _graph_counts() == (captures + 2, replays + 3)
+    want_a = _sector_eager(x, kernel_a.sector_tables)
+    assert torch.equal(got[0], want_a)
+    assert torch.equal(got[1], _sector_eager(x, kernel_b.sector_tables))
+    assert torch.equal(got[2], want_a)
+
+
+@pytest.mark.parametrize('space', ['sc', 'xparity'])
+def test_sector_graph_of_a_copied_table_set_on_card(card, space):
+    """A shallow copy of a table set with its column channels taken out
+    (as ``chip_smoke.py --sector-forms`` makes one) captures a graph of
+    its own after the original's: its y is its own channel loop's, not
+    the original's replayed."""
+    import copy
+    from dynamite_tpu_torch.ops.sector_apply import sector_apply
+    _H, sub, kernel = _sector_operator('heisenberg', space)
+    tables = kernel.sector_tables
+    assert tables.col_channels
+    x = torch.from_numpy(_planes(sub.get_dimension(), seed=10)).to(card)
+    full = sector_apply(x, tables)
+    rest = copy.copy(tables)
+    rest.col_channels, rest._on = [], {}
+    captures, replays = _graph_counts()
+    part = sector_apply(x, rest)
+    assert _graph_counts() == (captures + 1, replays + 1)
+    assert torch.equal(part, _sector_eager(x, rest))
+    assert not torch.equal(part, full)
+    assert torch.equal(sector_apply(x, tables), full)
+
+
+def test_sector_apply_inside_a_capture_on_card(card):
+    """Inside a CUDA graph capture of its caller the engine runs its channel
+    loop, so the caller's graph holds the apply; replayed, it gives the
+    loop's y bitwise."""
+    from dynamite_tpu_torch.ops.sector_apply import sector_apply
+    _H, sub, kernel = _sector_operator('long_range', 'sc')
+    tables = kernel.sector_tables
+    dim = sub.get_dimension()
+    x = torch.from_numpy(_planes(dim, seed=9)).to(card)
+    static_x = torch.zeros_like(x)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):   # the warm-up, on the capture stream
+        _sector_eager(static_x, tables)
+    torch.cuda.current_stream().wait_stream(stream)
+    captures, replays = _graph_counts()
+    applies = tracing.counter('sector.applies')
+    outer = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer, stream=stream):
+        static_y = sector_apply(static_x, tables)
+    assert tracing.counter('sector.applies') == applies + 1
+    assert _graph_counts() == (captures, replays)
+    static_x.copy_(x)
+    outer.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static_y, _sector_eager(x, tables))
 
 
 @pytest.mark.parametrize('space', ['sc', 'xparity'])

@@ -11,6 +11,7 @@ package's local engine (``traceable(sharded=False)``) and the numpy oracle
 path, through the plain version of the CUDA kernel.
 """
 
+import copy
 from math import comb
 
 import numpy as np
@@ -29,10 +30,11 @@ from dynamite_tpu.ops.sector_apply import SectorPlan as RefSectorPlan
 from dynamite_tpu_torch import config
 from dynamite_tpu_torch import models
 from dynamite_tpu_torch import subspaces
+from dynamite_tpu_torch import tracing
 from dynamite_tpu_torch.ops import sectors
 from dynamite_tpu_torch.ops.apply import _Plan
 from dynamite_tpu_torch.ops.index_maps import device_map, popcount
-from dynamite_tpu_torch.ops.sector_apply import (SectorPlan,
+from dynamite_tpu_torch.ops.sector_apply import (SectorPlan, sector_apply,
                                                  sector_apply_reference)
 from dynamite_tpu_torch.ops.xor_apply import xor_apply_reference
 from dynamite_tpu_torch.utils.bitwise import popcount as popcount_np
@@ -315,6 +317,44 @@ def test_sector_apply_casts_tables_per_dtype():
     y32 = kernel.apply(torch.from_numpy(x.astype(np.float32))).numpy()
     assert y32.dtype == np.float32
     assert _rel(y32, y64) <= 1e-5
+
+
+def test_sector_apply_on_cpu_returns_new_tensors():
+    """On CPU tensors the engine runs its channel loop and captures no CUDA
+    graph: each call returns a tensor of its own (the second apply leaves
+    the first's result as it was), equal to the plain version."""
+    H, sub, _H_ref, _sub_ref = _pair('long_range',
+                                     lambda pkg: pkg.SpinConserve(12, 6))
+    kernel = H.get_mat()
+    xs = [torch.from_numpy(_planes(sub.get_dimension(), seed=s))
+          for s in (1, 2)]
+    counts = (tracing.counter('sector.graph_captures'),
+              tracing.counter('sector.graph_replays'))
+    y1 = sector_apply(xs[0], kernel.sector_tables)
+    kept = y1.clone()
+    y2 = sector_apply(xs[1], kernel.sector_tables)
+    assert y1.data_ptr() != y2.data_ptr()
+    assert torch.equal(y1, kept)
+    for x, y in zip(xs, (y1, y2)):
+        assert _rel(y.numpy(),
+                    sector_apply_reference(x, kernel.plan).numpy()) <= 1e-12
+    assert (tracing.counter('sector.graph_captures'),
+            tracing.counter('sector.graph_replays')) == counts
+    assert kernel.sector_tables.graphs == {}
+
+
+def test_sector_tables_copy_has_no_graphs():
+    """A shallow copy of a table set starts with no CUDA graph of its own,
+    so a copy whose channels are changed never replays the original's
+    graph; everything else it shares."""
+    H, _sub, _H_ref, _sub_ref = _pair('heisenberg',
+                                      lambda pkg: pkg.SpinConserve(12, 6))
+    tables = H.get_mat().sector_tables
+    rest = copy.copy(tables)
+    assert rest.graphs == {}
+    assert rest.graphs is not tables.graphs
+    assert rest.col_channels is tables.col_channels
+    assert rest.blocks is tables.blocks and rest.plan is tables.plan
 
 
 # -- XParity over the XOR path -------------------------------------------------
